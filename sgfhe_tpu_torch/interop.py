@@ -1,0 +1,55 @@
+"""Carry keys and ciphertexts across from numpy arrays (such as the JAX
+package's `np.asarray(...)` outputs) to this package's objects on a
+device, and back.
+
+Arrays come in as uint32 (or any integer type holding values < 2^32) with
+the JAX package's layouts: private key (n,) bits; bootstrap key and its
+Shoup companions (n, 2l, 2, L, m); RLWE/LWE a and b mod r; RNS residues
+(..., L, m). Residues become int64 tensors and the bootstrap key int32
+bit patterns (ops/modmath.py).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .models.params import Params
+from .models.scheme1 import (
+    LWE, RLWE, BootstrapKey, PackedCiphertext, PrivateKey,
+    resolve_device,
+)
+from .ops import modmath as mm
+
+
+def tensor(x, device=None) -> torch.Tensor:
+    """numpy integer array of uint32 values -> int64 tensor on `device`."""
+    arr = np.asarray(x).astype(np.int64) & mm.MASK32
+    return torch.as_tensor(arr, device=resolve_device(device))
+
+
+def bits_tensor(x, device=None) -> torch.Tensor:
+    """numpy array of uint32 values -> int32 tensor of the same bit patterns."""
+    return mm.bits32(tensor(x, device))
+
+
+def to_numpy(t: torch.Tensor) -> np.ndarray:
+    """Tensor of uint32 values (int64 values, or int32 bit patterns) ->
+    numpy uint32."""
+    return (t.detach().cpu().to(torch.int64) & mm.MASK32).numpy().astype(np.uint32)
+
+
+def private_key(params: Params, key, device=None) -> PrivateKey:
+    return PrivateKey(params, tensor(key, device))
+
+
+def bootstrap_key(params: Params, hat, hat_shoup, device=None) -> BootstrapKey:
+    return BootstrapKey(params, bits_tensor(hat, device), bits_tensor(hat_shoup, device))
+
+
+def lwe(a, b, device=None) -> LWE:
+    return LWE(tensor(a, device), tensor(b, device))
+
+
+def packed_ciphertext(params: Params, a, b, device=None) -> PackedCiphertext:
+    return PackedCiphertext(params, RLWE(tensor(a, device), tensor(b, device)))

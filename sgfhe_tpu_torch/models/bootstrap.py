@@ -1,0 +1,162 @@
+"""Gate bootstrap (counterpart of sgfhe_tpu/models/bootstrap.py; reference
+src/fhe.jl:519-621).
+
+Every function carries a leading batch axis of gates. The bootstrap key
+lives in the NTT domain with Shoup companions, and each of the n rotation
+steps is one external product (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G):
+flatten both accumulators into balanced digits, forward NTT, Shoup MAC
+against the key, multiply by x^{u_k} in the hat domain, inverse NTT.
+
+The rotation runs either as the twin (`_external_step`, plain PyTorch, the
+counterpart of the JAX package's jnp path) or through the CUDA step kernels
+(ops/fused.blind_rotate_steps). `_rotation_route` picks by the tensors'
+device, never by an environment variable: CPU tensors take the twin, CUDA
+tensors the kernels, with the T-term carried ("carry", the JAX package's
+resident kernel) when prune == 0 and the key with its companions is at most
+10 MiB, and computed by w-multiplies ("wmul", its streamed kernel)
+otherwise. `plain=True` forces the twin on any device.
+
+Deterministic by default; pass two Threefry seed words for randomized
+flattening (ops/prg.py).
+"""
+
+from __future__ import annotations
+
+import torch
+
+from ..ops import fused as fused_mod
+from ..ops import modmath as mm
+from ..ops import ntt as ntt_mod
+from ..ops import poly as pol
+from ..ops import prg
+from ..ops import rns as rns_mod
+from .params import Params, prune_error_bound
+from .scheme1 import LWE, EncryptedBit, SchemeContext
+
+_RESIDENT_KEY_BYTES = 10 * 1024 * 1024
+
+
+def _rotation_route(params: Params, device: torch.device, prune: int,
+                    plain: bool) -> str:
+    """'plain' (the twin), 'carry' or 'wmul' (the CUDA kernels)."""
+    if plain or device.type == "cpu":
+        return "plain"
+    if device.type != "cuda":
+        raise ValueError(f"no rotation path for device {device}")
+    resident = fused_mod.fused_bkey_bytes(params) <= _RESIDENT_KEY_BYTES
+    return "carry" if prune == 0 and resident else "wmul"
+
+
+def _external_step(params: Params, ctx: SchemeContext, a_acc, b_acc, ck_hat,
+                   ck_shoup, u_k, seed2, step_k: int, prune: int = 0):
+    """One blind-rotation step of the twin. a_acc, b_acc: (B, L, m) int64;
+    ck_hat/ck_shoup: (2l, 2, L, m) int64; u_k: (B,) mod 2m; seed2: None or
+    the two Threefry key words."""
+    d_hat = fused_mod.flatten_ntt_fwd_i64(ctx, a_acc, b_acc, seed2, step_k, prune)
+    a, b, _, _ = fused_mod.mac_rotate_ntt_inv_i64(ctx, d_hat, ck_hat, ck_shoup, u_k, prune)
+    return a, b
+
+
+def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
+                 seed2=None, prune: int = 0, *, plain: bool = False):
+    """The n-step rotation: (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G) for
+    k = 0..n-1, batched. ua: (B, n) exponents mod 2m; a_acc, b_acc:
+    (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32."""
+    n = params.n
+    if prune:
+        bound = prune_error_bound(params, prune)
+        assert bound < params.Dr / 16, (
+            f"digit pruning prune={prune} admits post-rescale noise "
+            f"{bound:.3g}, too close to the Dr/4 = {params.Dr // 4} decision "
+            f"budget (guard: < Dr/16 = {params.Dr / 16:.3g})"
+        )
+    route = _rotation_route(params, a_acc.device, prune, plain)
+    if route != "plain":
+        return fused_mod.blind_rotate_steps(
+            ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
+            carry=route == "carry",
+        )
+    for k in range(n):
+        a_acc, b_acc = _external_step(
+            params, ctx, a_acc, b_acc, mm.u32(bkey_hat[k]), mm.u32(bkey_shoup[k]),
+            ua[:, k], seed2, k, prune,
+        )
+    return a_acc, b_acc
+
+
+def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
+                       a1, b1, a2, b2, seed2=None, prune: int = 0, *,
+                       plain: bool = False):
+    """Blind rotation + gate extraction (reference src/fhe.jl:559-595),
+    batched. a1, a2: (B, n); b1, b2: (B,); all mod r. seed2: None or the two
+    Threefry key words, used as given. Returns three LWEs over Q as
+    ((B, L, n), (B, L)) pairs: AND, OR, XOR."""
+    n, m, L = params.n, params.m, params.num_limbs
+    mask = params.mask_r
+    plan = ctx.plan_Q
+    ua = (a1 + a2) & mask
+    ub = (b1 + b2) & mask
+    batch = ua.shape[0]
+    # b0 = t(x) * DQ~ * x^{-ub}, rotated in the hat domain
+    tpoly_hat_b = ctx.tpoly_dq_hat.expand(batch, L, m)
+    shift = (2 * m - ub) & (2 * m - 1)
+    b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, tpoly_hat_b, shift))
+    a_acc = torch.zeros((batch, L, m), dtype=torch.int64, device=b_acc.device)
+
+    a_acc, b_acc = blind_rotate(
+        params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
+        plain=plain,
+    )
+
+    i_and = 3 * m // 4
+    i_or = m // 4
+    p = plan.p
+    a_and = pol.extract(a_acc, i_and, n, p)
+    b_and = mm.addmod(ctx.dq_tilde[:, 0], b_acc[..., i_and], p[:, 0])
+    a_or = mm.negmod(pol.extract(a_acc, i_or, n, p), p)
+    b_or = mm.submod(ctx.dq_tilde[:, 0], b_acc[..., i_or], p[:, 0])
+    a_xor = mm.submod(a_or, a_and, p)
+    b_xor = mm.submod(b_or, b_and, p[:, 0])
+    return (a_and, b_and), (a_or, b_or), (a_xor, b_xor)
+
+
+def _reduce_lwe(params: Params, ctx: SchemeContext, lwe_q) -> LWE:
+    """Modulus switch Q -> r on an RNS LWE (reference src/fhe.jl:616-618)."""
+    a_q, b_q = lwe_q
+    a_r = rns_mod.rescale_exact(ctx.rns, a_q, params.r, params.moduli)
+    b_r = rns_mod.rescale_exact(ctx.rns, b_q[..., None], params.r, params.moduli)[..., 0]
+    return LWE(a_r, b_r)
+
+
+def bootstrap_batch(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
+                    lwe1: LWE, lwe2: LWE, seed_words=None,
+                    epoch: "int | None" = None, prune: int = 0, *,
+                    plain: bool = False):
+    """Batched gate bootstrap: returns (AND, OR, XOR) LWE batches mod r
+    (reference src/fhe.jl:608-621).
+
+    seed_words: None (deterministic) or two uint32 words for randomized
+    flattening; a fresh epoch is folded in per call (ops/prg.fold_epoch) so
+    repeated calls never replay a mask stream; pass `epoch` to pin it.
+    prune > 0 drops the `prune` lowest digit rows (approximate gadget; the
+    admitted noise is asserted < Dr/16)."""
+    seed2 = prg.fold_epoch(seed_words, epoch)
+    triple = bootstrap_internal(
+        params, ctx, bkey_hat, bkey_shoup, lwe1.a, lwe1.b, lwe2.a, lwe2.b,
+        seed2, prune, plain=plain,
+    )
+    return tuple(_reduce_lwe(params, ctx, t) for t in triple)
+
+
+def bootstrap(params, ctx, bkey, enc_bit1: EncryptedBit, enc_bit2: EncryptedBit,
+              seed_words=None, epoch: "int | None" = None):
+    """Single- or batched-gate convenience wrapper returning EncryptedBits."""
+    a1, a2 = torch.atleast_2d(enc_bit1.lwe.a), torch.atleast_2d(enc_bit2.lwe.a)
+    b1, b2 = torch.atleast_1d(enc_bit1.lwe.b), torch.atleast_1d(enc_bit2.lwe.b)
+    res = bootstrap_batch(
+        params, ctx, bkey.hat, bkey.hat_shoup, LWE(a1, b1), LWE(a2, b2),
+        seed_words, epoch,
+    )
+    if enc_bit1.lwe.a.ndim == 1:
+        return tuple(EncryptedBit(LWE(r.a[0], r.b[0])) for r in res)
+    return tuple(EncryptedBit(r) for r in res)

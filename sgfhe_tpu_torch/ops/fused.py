@@ -1,0 +1,365 @@
+"""The blind rotation's step kernels (csrc/rotate.cu), their wrappers and
+their plain PyTorch versions.
+
+Counterpart of sgfhe_tpu/ops/fused.py, whose two Pallas TPU kernels,
+`_rotate_kernel` (key resident, T-term carried) and `_rotate_step_kernel`
+(key streamed, T-term by w-multiplies), run all n steps of a batch tile in
+one launch. Here one step is two CUDA launches, and the n-step loop
+(`blind_rotate_steps`) runs on the host:
+
+  flatten_ntt_fwd      acc (2, B, L, m) -> d_hat (B, 2(l-prune), L, m):
+                       balanced mixed-radix digits of both accumulators
+                       (Threefry-masked in randomized mode), forward NTT.
+  mac_rotate_ntt_inv   d_hat + key slice of step k -> new acc (2, B, L, m):
+                       Shoup MAC against the key, T-term, x^{u_k}, inverse
+                       NTT. t_mode 0 computes T by w-multiplies (the
+                       streamed TPU kernel); t_mode 1 also writes val to
+                       `carry` and t_mode 2 reads T from it (the resident
+                       TPU kernel's hat-carry, valid only when prune == 0).
+
+Tensors the wrappers take and return are int32 holding uint32 bit patterns
+(ops/modmath.py); their layouts are the kernels'. A wrapper launches its
+kernel for CUDA tensors and runs its plain version, in int64, for CPU
+tensors; any other device raises. Each wrapper counts its launches in its
+`launches` attribute.
+
+Every value the kernels keep is below 4p, and every value they write is
+canonical, so the outputs equal the plain versions bit for bit. `_chk`
+guards those bounds against the moduli in Python before each launch.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import dataclasses
+
+import numpy as np
+import torch
+
+from ..utils import primes as pr
+from . import modmath as mm
+from . import ntt as ntt_mod
+from . import rns as rns_mod
+
+_U32_LIMIT = (1 << 32) - 1
+LMAX = 4  # csrc/rotate.cu RnsConsts
+#: Largest lazy bound (in units of p) a kernel value reaches: the NTT
+#: butterflies keep values below 4p.
+KERNEL_LAZY_BOUND = 4
+
+
+def _chk(c: int, p_max: int) -> int:
+    """Static lazy-bound guard: a value bounded by c*p must fit uint32."""
+    assert c * p_max <= _U32_LIMIT, (
+        f"lazy-reduction bound overflow: {c} * p_max ({p_max}) exceeds "
+        f"2^32 - 1; the reduction schedule must reset earlier"
+    )
+    return c
+
+
+@dataclasses.dataclass(frozen=True)
+class FusedTables:
+    """What the kernels read besides their operands.
+
+    tables (L, 10, m) int32 on the device, per limb:
+      [0] fwd     merged forward twiddles: fwd[2^s + blk] = ψ^{F/2} of block
+                  blk at stage s (the JAX package's fwd_full, one entry per
+                  block instead of one per position)
+      [1] fwd_s   Shoup companions
+      [2] inv     inverse twiddles: inv[2^s + j] = the plan's inv_tw[s][j]
+      [3] inv_s
+      [4] post    ψ^{-i}·m^{-1}
+      [5] post_s
+      [6:8] pw    ψ^e for e in [0, 2m): x^u at hat position idx is one
+                  gather of pw[(2*br(idx)+1)*u mod 2m]
+      [8:10] pw_s
+    consts: the RnsConsts words of csrc/rotate.cu as host uint32.
+    """
+
+    moduli: tuple
+    m: int
+    tables: torch.Tensor
+    consts: np.ndarray
+    close: bool
+
+
+def build_tables_host(moduli: tuple[int, ...], m: int) -> np.ndarray:
+    """The kernels' (L, 10, m) twiddle and power tables as numpy uint64."""
+    L = len(moduli)
+    S = m.bit_length() - 1
+    h = ntt_mod.build_plan_host(moduli, m)
+    out = np.zeros((L, 10, m), dtype=np.uint64)
+    blocks = np.zeros((L, m), dtype=np.uint64)
+    for li, p in enumerate(moduli):
+        psi = pr.root_of_unity(2 * m, p)  # same root as build_plan
+        # block z^blen - ψ^F splits into z^half - ψ^{F/2} (lo) and
+        # z^half - ψ^{F/2+m} (hi); butterfly twiddle ψ^{F/2}
+        F = [m]
+        for s in range(S):
+            for b, f in enumerate(F):
+                blocks[li, (1 << s) + b] = pow(psi, f // 2, p)
+            F = [e for f in F for e in (f // 2, (f // 2 + m) % (2 * m))]
+    inv = np.zeros((L, m), dtype=np.uint64)
+    for s in range(S):
+        inv[:, (1 << s):(2 << s)] = h["inv"][s]
+    mods = np.array(moduli, dtype=np.uint64).reshape(L, 1)
+
+    def shoup(v):
+        return (v << np.uint64(32)) // mods
+
+    out[:, 0], out[:, 1] = blocks, shoup(blocks)
+    out[:, 2], out[:, 3] = inv, shoup(inv)
+    out[:, 4], out[:, 5] = h["post"], shoup(h["post"])
+    out[:, 6:8] = h["psi_pow"].reshape(L, 2, m)
+    out[:, 8:10] = shoup(h["psi_pow"]).reshape(L, 2, m)
+    return out
+
+
+def build_consts(moduli: tuple[int, ...]) -> np.ndarray:
+    """csrc/rotate.cu's RnsConsts as a flat uint32 array."""
+    L = len(moduli)
+    assert L <= LMAX, f"the kernels take at most {LMAX} limbs, got {L}"
+    t = rns_mod.build_context(moduli).tables()
+    z1 = np.zeros(LMAX, dtype=np.uint64)
+
+    def sq(a):  # (L, L[, 1]) -> (LMAX, LMAX)
+        out = np.zeros((LMAX, LMAX), dtype=np.uint64)
+        out[:L, :L] = np.asarray(a).reshape(L, L)
+        return out
+
+    def vec(a):
+        out = z1.copy()
+        out[:L] = np.asarray(a).reshape(L)
+        return out
+
+    kb = [rns_mod.mask_window_bits(p) for p in moduli]
+    two_k = [[(1 << kb[i]) % q for q in moduli] for i in range(L)]
+    kmask = [(1 << (kb[i] + 1)) - 1 for i in range(L)]
+    parts = [
+        vec(t["p"]), vec(t["offset"]),
+        sq(t["inv_pj_val"]), sq(t["inv_pj_shoup"]),
+        sq(t["s_mod"]), sq(t["w_val"]), sq(t["w_shoup"]),
+        sq(two_k), vec(kmask),
+    ]
+    return np.concatenate([x.reshape(-1) for x in parts]).astype(np.uint32)
+
+
+def build_fused(moduli: tuple[int, ...], m: int, device) -> FusedTables:
+    moduli = tuple(int(p) for p in moduli)
+    return FusedTables(
+        moduli=moduli,
+        m=m,
+        tables=mm.bits32(torch.as_tensor(
+            build_tables_host(moduli, m).astype(np.int64), device=device
+        )),
+        consts=build_consts(moduli),
+        close=pr.close_primes(moduli),
+    )
+
+
+def fused_bkey_bytes(params) -> int:
+    """Bytes of the bootstrap key with its Shoup companions."""
+    n, l, L, m = params.n, params.num_digits, params.num_limbs, params.m
+    return 2 * n * (2 * l) * 2 * L * m * 4
+
+
+# ---------------------------------------------------------------------------
+# Plain versions (int64, canonical): the twin of the whole rotation is these
+# two functions composed (models/bootstrap._external_step).
+# ---------------------------------------------------------------------------
+
+
+def flatten_ntt_fwd_i64(ctx, a_acc, b_acc, seed2, step: int, prune: int = 0):
+    """(B, L, m) accumulators -> d_hat (B, 2(l-prune), L, m), canonical."""
+    rns = ctx.rns
+    if seed2 is None:
+        da = rns_mod.flatten(rns, a_acc, prune)
+        db = rns_mod.flatten(rns, b_acc, prune)
+    else:
+        mods = ctx.fused.moduli
+        da = rns_mod.flatten_random(rns, a_acc, mods, seed2, step, op=0, prune=prune)
+        db = rns_mod.flatten_random(rns, b_acc, mods, seed2, step, op=1, prune=prune)
+    return ntt_mod.ntt_fwd(ctx.plan_Q, torch.cat([da, db], dim=-3))
+
+
+def mac_rotate_ntt_inv_i64(ctx, d_hat, ck_hat, ck_shoup, u_k, prune: int = 0,
+                           t_carry=None):
+    """One step's key product, monomial and inverse NTT.
+
+    d_hat (B, 2lk, L, m); ck_hat/ck_shoup (2l, 2, L, m); u_k (B,). t_carry:
+    None (T by w-multiplies) or the two canonical hats carried from the last
+    step. Returns (a, b, val_a, val_b): the new accumulators and their hats."""
+    plan = ctx.plan_Q
+    rns = ctx.rns
+    p = plan.p
+    l = plan.num_limbs
+    lk = l - prune
+    outs, vals = [], []
+    for c in range(2):
+        s_acc = None
+        for row in range(2 * lk):
+            krow = prune + row if row < lk else l + prune + (row - lk)
+            prod = mm.shoup_mul(d_hat[..., row, :, :], ck_hat[krow, c], ck_shoup[krow, c], p)
+            s_acc = prod if s_acc is None else mm.addmod(s_acc, prod, p)
+        if t_carry is not None:
+            t_acc = t_carry[c]
+        else:
+            t_acc = None
+            for i in range(lk):
+                row = i if c == 0 else lk + i
+                wprod = mm.shoup_mul(
+                    d_hat[..., row, :, :], rns.w_val[prune + i], rns.w_shoup[prune + i], p
+                )
+                t_acc = wprod if t_acc is None else mm.addmod(t_acc, wprod, p)
+        rot = ntt_mod.monomial_mul_hat(plan, s_acc, u_k)
+        val = mm.addmod(mm.submod(rot, s_acc, p), t_acc, p)
+        vals.append(val)
+        outs.append(ntt_mod.ntt_inv(plan, val))
+    return outs[0], outs[1], vals[0], vals[1]
+
+
+def flatten_ntt_fwd_plain(ctx, acc, step: int, seed2=None, prune: int = 0):
+    """Plain version of the flatten_ntt_fwd kernel, on its layouts."""
+    d_hat = flatten_ntt_fwd_i64(ctx, mm.u32(acc[0]), mm.u32(acc[1]), seed2, step, prune)
+    return d_hat.to(torch.int32)
+
+
+def mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, key_shoup, step: int, u,
+                             prune: int = 0, t_mode: int = 0, carry=None):
+    """Plain version of the mac_rotate_ntt_inv kernel, on its layouts."""
+    t = (mm.u32(carry[0]), mm.u32(carry[1])) if t_mode == 2 else None
+    a, b, va, vb = mac_rotate_ntt_inv_i64(
+        ctx, mm.u32(d_hat), mm.u32(key_hat[step]), mm.u32(key_shoup[step]),
+        mm.u32(u), prune, t,
+    )
+    if t_mode:
+        carry.copy_(torch.stack([va, vb]).to(torch.int32))
+    return torch.stack([a, b]).to(torch.int32)
+
+
+# ---------------------------------------------------------------------------
+# Kernel wrappers
+# ---------------------------------------------------------------------------
+
+
+def _check(name: str, t: torch.Tensor, shape: tuple, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.int32:
+        raise TypeError(f"{name} must be int32 (uint32 bit patterns), got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name} has shape {tuple(t.shape)}, expected {tuple(shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _require_cuda(t: torch.Tensor) -> None:
+    if t.device.type != "cuda":
+        raise ValueError(
+            f"the rotation kernels take CUDA tensors (CPU tensors take the "
+            f"plain version), got {t.device}"
+        )
+
+
+def _common(ctx, t: torch.Tensor):
+    ft = ctx.fused
+    L, m = len(ft.moduli), ft.m
+    _chk(KERNEL_LAZY_BOUND, max(ft.moduli))
+    _check("tables", ft.tables, (L, 10, m), t.device)
+    return ft, L, m
+
+
+def flatten_ntt_fwd(ctx, acc, step: int, seed2=None, prune: int = 0):
+    """acc (2, B, L, m) -> d_hat (B, 2(L-prune), L, m); see module doc."""
+    if acc.device.type == "cpu":
+        return flatten_ntt_fwd_plain(ctx, acc, step, seed2, prune)
+    _require_cuda(acc)
+    ft, L, m = _common(ctx, acc)
+    B = acc.shape[1]
+    assert 0 <= prune < L
+    _check("acc", acc, (2, B, L, m), acc.device)
+    from .. import _build
+
+    lib = _build.load()
+    d_hat = torch.empty((B, 2 * (L - prune), L, m), dtype=torch.int32, device=acc.device)
+    lo, hi = (0, 0) if seed2 is None else (int(seed2[0]) & mm.MASK32, int(seed2[1]) & mm.MASK32)
+    rc = lib.sg_flatten_ntt_fwd(
+        acc.data_ptr(), d_hat.data_ptr(), ft.tables.data_ptr(),
+        ft.consts.ctypes.data_as(ctypes.c_void_p),
+        B, L, m, prune, int(ft.close), int(seed2 is not None), lo, hi,
+        int(step) & mm.MASK32, torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"flatten_ntt_fwd launch failed: cudaError {rc}")
+    flatten_ntt_fwd.launches += 1
+    return d_hat
+
+
+flatten_ntt_fwd.launches = 0
+
+
+def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
+                       prune: int = 0, t_mode: int = 0, carry=None):
+    """d_hat (B, 2(L-prune), L, m), key (n, 2L, 2, L, m), u (B,) exponents of
+    this step -> new acc (2, B, L, m); carry (2, B, L, m) is written for
+    t_mode 1 and read and written for t_mode 2 (see module doc)."""
+    assert t_mode in (0, 1, 2)
+    assert t_mode == 0 or (prune == 0 and carry is not None), (
+        "hat-carry T-term represents the UNpruned accumulator"
+    )
+    if d_hat.device.type == "cpu":
+        return mac_rotate_ntt_inv_plain(
+            ctx, d_hat, key_hat, key_shoup, step, u, prune, t_mode, carry
+        )
+    _require_cuda(d_hat)
+    ft, L, m = _common(ctx, d_hat)
+    B = d_hat.shape[0]
+    n = key_hat.shape[0]
+    assert 0 <= prune < L and 0 <= step < n
+    dev = d_hat.device
+    _check("d_hat", d_hat, (B, 2 * (L - prune), L, m), dev)
+    _check("key_hat", key_hat, (n, 2 * L, 2, L, m), dev)
+    _check("key_shoup", key_shoup, (n, 2 * L, 2, L, m), dev)
+    _check("u", u, (B,), dev)
+    if t_mode:
+        _check("carry", carry, (2, B, L, m), dev)
+    from .. import _build
+
+    lib = _build.load()
+    acc = torch.empty((2, B, L, m), dtype=torch.int32, device=dev)
+    step_bytes = key_hat[0].numel() * 4
+    rc = lib.sg_mac_rotate_ntt_inv(
+        d_hat.data_ptr(), key_hat.data_ptr() + step * step_bytes,
+        key_shoup.data_ptr() + step * step_bytes, u.data_ptr(), acc.data_ptr(),
+        carry.data_ptr() if t_mode else None, ft.tables.data_ptr(),
+        ft.consts.ctypes.data_as(ctypes.c_void_p),
+        B, L, m, prune, t_mode, torch.cuda.current_stream().cuda_stream,
+    )
+    if rc != 0:
+        raise RuntimeError(f"mac_rotate_ntt_inv launch failed: cudaError {rc}")
+    mac_rotate_ntt_inv.launches += 1
+    return acc
+
+
+mac_rotate_ntt_inv.launches = 0
+
+
+def blind_rotate_steps(ctx, bkey_hat, bkey_shoup, ua, a0, b0, seed2=None,
+                       prune: int = 0, carry: bool = False):
+    """The n-step rotation through the two step wrappers: 2n launches on
+    CUDA tensors. ua (B, n) exponents mod 2m; a0, b0 (B, L, m) int64
+    canonical. carry=True takes the T-term from the last step's val (t_mode
+    2; step 0 computes it by w-multiplies and writes it). Returns the
+    accumulators as int64 (B, L, m)."""
+    assert not (carry and prune), "hat-carry needs prune == 0"
+    n = bkey_hat.shape[0]
+    acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
+    u_steps = ua.t().contiguous().to(torch.int32)
+    carry_buf = torch.empty_like(acc) if carry else None
+    for k in range(n):
+        d_hat = flatten_ntt_fwd(ctx, acc, k, seed2, prune)
+        t_mode = 0 if not carry else (1 if k == 0 else 2)
+        acc = mac_rotate_ntt_inv(
+            ctx, d_hat, bkey_hat, bkey_shoup, k, u_steps[k], prune, t_mode, carry_buf
+        )
+    return acc[0].to(torch.int64), acc[1].to(torch.int64)
