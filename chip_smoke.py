@@ -8,14 +8,20 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
   2. kernels vs twin on the card, bit for bit, at Params(64) with port-made
      keys: exact (carry and w-multiply T-modes), prune 1 and 2, randomized,
      and near-2^29 moduli with l = 3.
-  3. each kernel against its plain version at the main path's shapes, with
-     its time, the plain version's time and its bound.
+  2b. one step of each kernel against its plain version, bit for bit, at
+     L in {2, 3, 4} x m in {512, 4096, 8192, 32768} with near-2^29 moduli,
+     random canonical inputs and key slice, B = 1 and a batch whose last
+     gate tile is partial, every prune, exact and randomized, every T-mode.
+  3. each kernel against its plain version at the main path's shapes, in
+     both of its modes, with its time (steps 0..n-1 in turn, as the main
+     path walks the key), the plain version's time and its bound.
   4. main path at Params(64): keygen, encrypt, split, bootstrap_batch on
      4096 gates, decrypt_bit, AND/OR/XOR truth tables, gates/s, and a
-     profiler trace of one call (device busy and idle time).
+     profiler trace of one call (device busy and idle time, each kernel's
+     own device time).
   5. main path at Params(512), full width (576 MiB key): 256 gates, truth
-     tables, gates/s, launches == 2n per call, the twin's time on the card
-     for the same batch and its equality with the kernels' output.
+     tables, gates/s, launches == 2n per call, the trace, the twin's time on
+     the card for the same batch and its equality with the kernels' output.
 The line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
 of the repository, it exits nonzero and prints no result.
@@ -37,6 +43,7 @@ HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
 # SM, so int32 multiplies run at a quarter of that rate.
 INT32_MUL_PER_S = 67e12 / 4
 SHOUP_MULS = 3  # a*w, mulhi(a, w'), q*p
+SEED2 = (0x12345678, 0x9ABCDEF0)
 
 
 def fail(msg: str):
@@ -52,14 +59,15 @@ def smi() -> str:
 
 
 def cuda_ms(fn, reps: int) -> float:
+    """Mean ms of fn(0), ..., fn(reps - 1) by CUDA events, after fn(0)."""
     import torch
 
-    fn()
+    fn(0)
     torch.cuda.synchronize()
     start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     start.record()
-    for _ in range(reps):
-        fn()
+    for i in range(reps):
+        fn(i)
     stop.record()
     torch.cuda.synchronize()
     return start.elapsed_time(stop) / reps
@@ -72,13 +80,16 @@ def bound(bytes_moved: float, muls: float):
 
 
 def fwd_cost(B, L, m, lk, randomized):
-    """Bytes and int32 multiplies one flatten_ntt_fwd launch needs."""
+    """Bytes and int32 multiplies one flatten_ntt_fwd launch needs: the
+    digit chain (and in randomized mode the masks) once per coefficient,
+    one forward NTT per (gate, operand, kept digit, limb)."""
     logm = m.bit_length() - 1
-    blocks = B * 2 * lk * L
     nbytes = 2 * B * L * m * 4 + B * 2 * lk * L * m * 4 + L * 2 * m * 4
-    chain = sum(range(L - lk, L)) / lk  # mean chain length of a kept digit
-    per_block = (m // 2) * logm + m * chain + (m * lk * L if randomized else 0)
-    return nbytes, blocks * per_block * SHOUP_MULS
+    coeffs = 2 * B * m
+    chain = L * (L - 1) // 2 * SHOUP_MULS  # digit d takes d Shoup steps
+    masks = lk * L * (1 + SHOUP_MULS) if randomized else 0  # v % p_j, times w
+    ntt = B * 2 * lk * L * (m // 2) * logm * SHOUP_MULS
+    return nbytes, coeffs * (chain + masks) + ntt
 
 
 def mac_cost(B, L, m, lk, t_mode):
@@ -93,6 +104,7 @@ def mac_cost(B, L, m, lk, t_mode):
 
 
 def main() -> int:
+    import numpy as np
     import torch
 
     if not torch.cuda.is_available():
@@ -106,6 +118,7 @@ def main() -> int:
     from sgfhe_tpu_torch import _build
     from sgfhe_tpu_torch.models import bootstrap as tbs
     from sgfhe_tpu_torch.ops import fused
+    from sgfhe_tpu_torch.ops import modmath as mm
     from sgfhe_tpu_torch.utils import primes
 
     dev = torch.device("cuda")
@@ -171,56 +184,118 @@ def main() -> int:
         print(f"[2] kernel == twin bit for bit: {name}")
     print(f"[2] launches (flatten_ntt_fwd, mac_rotate_ntt_inv): {counts()}")
 
+    # ---- 2b. one step of each kernel at every supported shape ---------------
+    t0 = time.perf_counter()
+    n_checks = 0
+    for L in (2, 3, 4):
+        for m in (512, 4096, 8192, 32768):
+            mods = primes.find_rns_primes(2 * m, 1 << (29 * L - 2), (1 << (29 * L - 1)) - 1, L)
+            params = dataclasses.replace(T.Params.create(m // 8), moduli=mods)
+            ctx = T.make_context(params, device=dev)
+            rng = np.random.default_rng(L * m)
+            p = np.array(mods, dtype=np.int64).reshape(L, 1)
+
+            def canon(shape):
+                return rng.integers(0, 1 << 30, shape) % p
+
+            def on_card(a):
+                return mm.bits32(torch.as_tensor(a, device=dev))
+
+            key = canon((1, 2 * L, 2, L, m))
+            key_hat, key_s = on_card(key), on_card((key << 32) // p)
+            for prune in range(L):
+                ragged = next((B for B in range(2, 200)
+                               if (g := fused.mac_plan(B, L, m, prune).gates) > 1 and B % g), 2)
+                for B in (1, ragged):
+                    acc = on_card(canon((2, B, L, m)))
+                    u = on_card(rng.integers(0, 2 * m, (B,)))
+                    for seed2 in (None, SEED2):
+                        got = fused.flatten_ntt_fwd(ctx, acc, 3, seed2, prune)
+                        d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 3, seed2, prune)
+                        if not torch.equal(got, d_p):
+                            fail(f"flatten_ntt_fwd != plain: L={L} m={m} B={B} "
+                                 f"prune={prune} randomized={seed2 is not None}")
+                        n_checks += 1
+                    for t_mode in ((0, 1, 2) if prune == 0 else (0,)):
+                        carry_k = on_card(canon((2, B, L, m))) if t_mode else None
+                        carry_p = carry_k.clone() if t_mode else None
+                        got = fused.mac_rotate_ntt_inv(ctx, d_p, key_hat, key_s, 0, u,
+                                                       prune, t_mode, carry_k)
+                        want = fused.mac_rotate_ntt_inv_plain(ctx, d_p, key_hat, key_s, 0, u,
+                                                              prune, t_mode, carry_p)
+                        if not (torch.equal(got, want)
+                                and (not t_mode or torch.equal(carry_k, carry_p))):
+                            fail(f"mac_rotate_ntt_inv != plain: L={L} m={m} B={B} "
+                                 f"prune={prune} t_mode={t_mode}")
+                        n_checks += 1
+            print(f"[2b] L={L} m={m}: both kernels == plain bit for bit "
+                  f"(B = 1 and {ragged}, every prune and mode)")
+    torch.cuda.synchronize()
+    print(f"[2b] {n_checks} single-step checks in {time.perf_counter() - t0:.1f} s")
+
     # ---- 3. each kernel against its plain version at main-path shapes -------
     p512 = T.Params.create(512)
     ctx512, sk512, bk512, g512 = keys(p512, 4)
     key_mib = 2 * bk512.hat.numel() * 4 / 2**20
     print(f"[3] Params(512) key with Shoup companions on the card: {key_mib:.0f} MiB")
     table = []
-    # (tag, ..., batch, t_mode, the TPU kernel replaced: _rotate_kernel at
-    # Params(64), whose T-term is carried; _rotate_step_kernel at Params(512))
+    # (tag, ..., batch, the main path's T-mode, the TPU kernel replaced:
+    # _rotate_kernel at Params(64), whose T-term is carried;
+    # _rotate_step_kernel at Params(512))
     shapes = [
         ("n=64", p64, ctx64, bk64, 4096, 2, "sgfhe_tpu/ops/fused.py:542"),
         ("n=512", p512, ctx512, bk512, 256, 0, "sgfhe_tpu/ops/fused.py:604"),
     ]
-    for tag, params, ctx, bk, B, t_mode, replaces in shapes:
-        L, m = params.num_limbs, params.m
+
+    def add_row(name, replaces, err, ms, pms, nbytes_muls):
+        bms, by = bound(*nbytes_muls)
+        table.append(dict(
+            name=name, route="cuda", source="sgfhe_tpu_torch/csrc/rotate.cu",
+            replaces=replaces, launches=0, max_abs_err=err, ms=ms,
+            plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
+        ))
+        print(f"[3] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), plain "
+              f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}")
+
+    for tag, params, ctx, bk, B, main_t, replaces in shapes:
+        L, m, n = params.num_limbs, params.m, params.n
         ua, a0, b0 = rand_acc(params, B, 5)
         acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
         u = ua[:, 0].to(torch.int32).contiguous()
-        carry_k = (torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None)
-        carry_p = carry_k.clone() if t_mode else None
-        d_k = fused.flatten_ntt_fwd(ctx, acc, 0)
-        d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 0)
-        out_k = fused.mac_rotate_ntt_inv(ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0, t_mode, carry_k)
-        out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_p, bk.hat, bk.hat_shoup, 0, u, 0, t_mode, carry_p)
-        torch.cuda.synchronize()
-        err_f = int((d_k.long() - d_p.long()).abs().max())
-        err_m = int((out_k.long() - out_p.long()).abs().max())
-        if t_mode:
-            err_m = max(err_m, int((carry_k.long() - carry_p.long()).abs().max()))
-        if err_f or err_m:
-            fail(f"{tag}: kernel vs plain max_abs_err {err_f}, {err_m}")
-        ms_f = cuda_ms(lambda: fused.flatten_ntt_fwd(ctx, acc, 0), 20)
-        ms_fp = cuda_ms(lambda: fused.flatten_ntt_fwd_plain(ctx, acc, 0), 3)
-        ms_m = cuda_ms(lambda: fused.mac_rotate_ntt_inv(
-            ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0, t_mode, carry_k), 20)
-        ms_mp = cuda_ms(lambda: fused.mac_rotate_ntt_inv_plain(
-            ctx, d_p, bk.hat, bk.hat_shoup, 0, u, 0, t_mode, carry_p), 3)
-        b_f, by_f = bound(*fwd_cost(B, L, m, L, False))
-        b_m, by_m = bound(*mac_cost(B, L, m, L, t_mode))
-        mode = "carry" if t_mode else "w-multiply"
-        for name, err, ms, pms, bms, by in (
-            (f"flatten_ntt_fwd ({tag})", err_f, ms_f, ms_fp, b_f, by_f),
-            (f"mac_rotate_ntt_inv {mode} ({tag})", err_m, ms_m, ms_mp, b_m, by_m),
-        ):
-            table.append(dict(
-                name=name, route="cuda", source="sgfhe_tpu_torch/csrc/rotate.cu",
-                replaces=replaces, launches=0, max_abs_err=err, ms=ms,
-                plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
-            ))
-            print(f"[3] {name}: B={B} {ms:.4f} ms/launch, plain {pms:.3f} ms, "
-                  f"bound {bms:.4f} ms ({by}), max_abs_err {err}")
+        print(f"[3] {tag}: B={B}, plans {fused.fwd_plan(B, L, m, 0, fused._sm_count(0))}, "
+              f"{fused.mac_plan(B, L, m, 0, fused._sm_count(0))}")
+        d_k = None
+        for seed2 in (None, SEED2):
+            got = fused.flatten_ntt_fwd(ctx, acc, 0, seed2)
+            want = fused.flatten_ntt_fwd_plain(ctx, acc, 0, seed2)
+            torch.cuda.synchronize()
+            err = int((got.long() - want.long()).abs().max())
+            if err:
+                fail(f"{tag}: flatten_ntt_fwd vs plain max_abs_err {err}")
+            d_k = got if seed2 is None else d_k
+            ms = cuda_ms(lambda i: fused.flatten_ntt_fwd(ctx, acc, i % n, seed2), n)
+            pms = cuda_ms(lambda i: fused.flatten_ntt_fwd_plain(ctx, acc, i % n, seed2), 3)
+            name = f"flatten_ntt_fwd{' randomized' if seed2 else ''} ({tag})"
+            add_row(name, replaces, err, ms, pms, fwd_cost(B, L, m, L, seed2 is not None))
+        for t_mode in (main_t, 2 - main_t):
+            carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
+            carry_p = carry_k.clone() if t_mode else None
+            out_k = fused.mac_rotate_ntt_inv(ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0,
+                                             t_mode, carry_k)
+            out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0,
+                                                   t_mode, carry_p)
+            torch.cuda.synchronize()
+            err = int((out_k.long() - out_p.long()).abs().max())
+            if t_mode:
+                err = max(err, int((carry_k.long() - carry_p.long()).abs().max()))
+            if err:
+                fail(f"{tag}: mac_rotate_ntt_inv t_mode {t_mode} vs plain max_abs_err {err}")
+            ms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv(
+                ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_k), n)
+            pms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv_plain(
+                ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_p), 3)
+            name = f"mac_rotate_ntt_inv {'carry' if t_mode else 'w-multiply'} ({tag})"
+            add_row(name, replaces, err, ms, pms, mac_cost(B, L, m, L, t_mode))
 
     # ---- 4/5. the main path --------------------------------------------------
     def truth_tables(sk, out, y1, y2):
@@ -252,12 +327,14 @@ def main() -> int:
               f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {launches} over {reps + 1} calls")
         print(f"[{tag}] {B / med:.1f} gates/s (median of {reps}: "
               f"{[round(t, 4) for t in times]} s) on {card}")
-        trace(tag, lambda: T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup, lwe1, lwe2))
-        return out, launches
+        per_kernel = trace(tag, lambda: T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup,
+                                                          lwe1, lwe2))
+        return out, launches, per_kernel
 
     def trace(tag, call):
         """Device busy time of one traced call, by the profiler's device
-        events: the rotation kernels, the other device ops, and idle."""
+        events: each rotation kernel, the other device ops, and idle.
+        Returns each rotation kernel's device ms per launch."""
         from torch.autograd import DeviceType
         from torch.profiler import ProfilerActivity, profile
 
@@ -266,18 +343,26 @@ def main() -> int:
             call()
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
-        busy = rot = 0.0
+        busy = 0.0
+        kern = {"flatten_ntt_fwd": [0.0, 0], "mac_rotate_ntt_inv": [0.0, 0]}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
                 continue
             busy += e.self_device_time_total / 1e3
-            if "flatten_ntt_fwd_kernel" in e.key or "mac_rotate_ntt_inv_kernel" in e.key:
-                rot += e.self_device_time_total / 1e3
-        if not rot > 0:
-            fail(f"[{tag}] the trace shows no rotation kernel on the device")
+            for name, acc in kern.items():
+                if f"{name}_kernel" in e.key:
+                    acc[0] += e.self_device_time_total / 1e3
+                    acc[1] += e.count
+        rot = sum(ms for ms, _ in kern.values())
+        if not all(n for _, n in kern.values()):
+            fail(f"[{tag}] the trace misses a rotation kernel on the device: {kern}")
         print(f"[{tag}] trace of one call: {wall:.2f} ms wall, device busy {busy:.2f} ms "
               f"({busy / wall:.1%}): rotation kernels {rot:.2f} ms, other device ops "
               f"{busy - rot:.2f} ms; idle {wall - busy:.2f} ms ({1 - busy / wall:.1%})")
+        for name, (ms, n) in kern.items():
+            print(f"[{tag}] trace: {name} {ms:.2f} ms over {n} launches "
+                  f"({ms / n:.4f} ms/launch)")
+        return {name: ms / n for name, (ms, n) in kern.items()}
 
     # Params(64): every pair (i, j) of two 64-bit messages -> 4096 gates
     m1 = torch.randint(0, 2, (p64.n,), generator=g64)
@@ -288,7 +373,7 @@ def main() -> int:
     jj = torch.arange(p64.n, device=dev).repeat(p64.n)
     lwe1, lwe2 = T.LWE(e1.a[ii], e1.b[ii]), T.LWE(e2.a[jj], e2.b[jj])
     y1, y2 = m1.to(dev)[ii].bool(), m2.to(dev)[jj].bool()
-    _, l64 = drive("4", p64, ctx64, bk64, sk64, lwe1, lwe2, y1, y2, reps=5)
+    _, l64, tr64 = drive("4", p64, ctx64, bk64, sk64, lwe1, lwe2, y1, y2, reps=5)
 
     # Params(512): every pair (2i, 2i+1) of one 512-bit message -> 256 gates
     msg = torch.randint(0, 2, (p512.n,), generator=g512)
@@ -296,7 +381,7 @@ def main() -> int:
     lwe1 = T.LWE(bits.a[0::2], bits.b[0::2])
     lwe2 = T.LWE(bits.a[1::2], bits.b[1::2])
     y1, y2 = msg.to(dev)[0::2].bool(), msg.to(dev)[1::2].bool()
-    out, l512 = drive("5", p512, ctx512, bk512, sk512, lwe1, lwe2, y1, y2, reps=2)
+    out, l512, tr512 = drive("5", p512, ctx512, bk512, sk512, lwe1, lwe2, y1, y2, reps=2)
     torch.cuda.synchronize()
     t = time.perf_counter()
     twin = T.bootstrap_batch(p512, ctx512, bk512.hat, bk512.hat_shoup, lwe1, lwe2, plain=True)
@@ -309,9 +394,18 @@ def main() -> int:
           f"({256 / twin_s:.1f} gates/s); output equal to the kernels' bit for bit")
     print(f"[5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
+    # On the rows of the modes the main path runs: launches, the kernel's
+    # count in its main-path run, and trace_ms, its device ms per launch in
+    # the traced main-path call. The other modes launched 0 times there.
+    main_rows = ("flatten_ntt_fwd (n=64)", "mac_rotate_ntt_inv carry (n=64)",
+                 "flatten_ntt_fwd (n=512)", "mac_rotate_ntt_inv w-multiply (n=512)")
     for row in table:
-        counts_ = l64 if "(n=64)" in row["name"] else l512
-        row["launches"] = counts_[0] if row["name"].startswith("flatten") else counts_[1]
+        counts_, tr = (l64, tr64) if "(n=64)" in row["name"] else (l512, tr512)
+        fwd = row["name"].startswith("flatten")
+        main = row["name"] in main_rows
+        row["launches"] = (counts_[0] if fwd else counts_[1]) if main else 0
+        kname = "flatten_ntt_fwd" if fwd else "mac_rotate_ntt_inv"
+        row["trace_ms"] = tr[kname] if main else None
     print(f"[card] {smi()}")
     print(json.dumps({"kernels": table}))
     print(json.dumps({"ok": True, "device": {

@@ -92,9 +92,9 @@ def load(source: str = "rotate.cu") -> ctypes.CDLL:
 
 def _declare(lib: ctypes.CDLL) -> None:
     P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.sg_flatten_ntt_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, U, U, U, P]
+    lib.sg_flatten_ntt_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, U, U, U, P, P]
     lib.sg_flatten_ntt_fwd.restype = I
-    lib.sg_mac_rotate_ntt_inv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, P]
+    lib.sg_mac_rotate_ntt_inv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
     lib.sg_mac_rotate_ntt_inv.restype = I
     lib.sg_consts_words.argtypes = []
     lib.sg_consts_words.restype = I

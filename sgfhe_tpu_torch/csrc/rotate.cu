@@ -9,39 +9,82 @@
 // n-step loop runs on the host (sgfhe_tpu_torch/ops/fused.py), in place of
 // the TPU grid's sequential step axis:
 //
-//   flatten_ntt_fwd     one block per (gate, operand, kept digit i, limb k):
-//                       mixed-radix chain to digit i (Threefry-2x32 masks in
-//                       randomized mode), embed into limb k, forward
-//                       negacyclic NTT in shared memory -> d_hat.
-//   mac_rotate_ntt_inv  one block per (gate, column c, limb k): Shoup MAC of
-//                       the kept key rows, T-term (w-multiplies, or the
-//                       carried canonical val), x^{u_k} by one gather of
-//                       psi^{(2 br(idx)+1) u mod 2m} and one Shoup multiply,
-//                       val = rot - s + t, inverse NTT + post-twist -> acc.
+//   flatten_ntt_fwd     one block per (gate, operand), or per (gate,
+//                       operand, limb[, digit]) where the digits of all
+//                       limbs do not fit shared memory: reads the operand's
+//                       L limbs once with 16-byte loads, runs the
+//                       mixed-radix chain (and in randomized mode the
+//                       Threefry-2x32 masks) once per coefficient, embeds
+//                       every kept digit into every limb of the block,
+//                       forward negacyclic NTT of all of them -> d_hat.
+//   mac_rotate_ntt_inv  one block per (column c, limb k, tile of G gates):
+//                       walks the coefficients in chunks, staging each chunk
+//                       of the 2(l - prune) key rows and of the G gates'
+//                       d_hat rows into a double-buffered shared-memory
+//                       ring by cp.async, and uses each key chunk for all G
+//                       gates: MAC and T-term (w-multiplies, or the carried
+//                       canonical val) as exact 64-bit sums reduced once,
+//                       x^{u_k} by one gather of psi^{(2 br(idx)+1) u mod
+//                       2m} per quad of coefficients and powers of the 4th
+//                       root of unity psi^{m/2}, val = rot - s + t into
+//                       shared memory; then the inverse NTT and post-twist
+//                       of the G vals -> acc.
 //
-// What bounds them on this card: the forward kernel writes, and the MAC
-// kernel reads, d_hat (2(l - prune) digits x L limbs x m words per gate per
-// step) through device memory, and every block re-reads its step's key
-// slice (from L2: 1.1 MiB at n=512). At the main path's shapes both kernels
-// move more bytes than their Shoup multiplies take time, so they are bound
-// by bytes. The design keeps the arithmetic simple and exact (every value
-// below 4p < 2^32, canonical at every kernel boundary) and leaves fusing
-// the two launches, keeping d_hat on chip and prefetching the key, to
-// later work.
+// What bounds them on this card. By bytes, the forward kernel reads acc and
+// writes d_hat (2(l - prune) digits x L limbs x m words per gate) and the
+// MAC kernel reads d_hat and writes acc; the key slice of a step is shared
+// by every gate, so it comes from device memory about once and from L2
+// once per tile of G gates (the launch plan picks G). In practice both are
+// held up by integer issue and latency: a forward NTT butterfly is 7
+// integer operations, 3 of them multiplies, and a block keeps its whole
+// polynomials in shared memory, so an SM holds few blocks. What the design
+// does:
+//   - every accumulator word is read once per step, and the digit chain and
+//     Threefry masks run once per coefficient (the first version read each
+//     accumulator and redid the chain l x L times);
+//   - the NTTs are register-blocked: a thread holds 2^R words of one
+//     polynomial and runs R <= 4 butterfly stages on them between
+//     shared-memory exchanges, and each exchange (one __syncthreads)
+//     covers every polynomial of the block: 3 exchanges at m = 512 and at
+//     m = 4096 instead of 9 and 12;
+//   - shared memory is padded by one word per 32, so the strided groups of
+//     the late stages fall on distinct banks;
+//   - the key chunk in shared memory serves G gates (the first version read
+//     the key once per gate), and the MAC reads only shared memory while
+//     the next chunk streams in;
+//   - both kernels compile to at most 64 registers a thread;
+//   - twiddles, the post-twist and the x^u power table are read through
+//     __ldg: staging them in shared memory cost blocks per SM and did not
+//     pay at either main-path shape;
+//   - global loads and stores of acc, d_hat, carry and the key are 16 bytes.
+// Every value stays below 4p < 2^32 in the NTTs (Harvey butterflies, as
+// in the first version) and every kernel output is canonical, so the
+// outputs equal the plain versions bit for bit.
 //
 // Data are uint32 bit patterns in int32 tensors, layouts (row-major):
 //   acc    (2, B, L, m)   [a; b] accumulators, canonical
 //   d_hat  (B, 2lk, L, m) canonical hat digits, lk = l - prune
-//   key    (2l, 2, L, m)  this step's key slice (hat) and Shoup companions
+//   key    (2l, 2, L, m)  this step's key slice (hat); its Shoup companions
+//                         come beside it and the MAC kernel does not need them
 //   tables (L, 10, m)     fwd, fwd_s, inv, inv_s, post, post_s, pw (2m), pw_s (2m)
 // Moduli are < 2^30 (asserted by the Python wrapper), so lazy values below
-// 4p fit in 32 bits.
+// 4p fit in 32 bits. Each launch takes its block shape from a plan the
+// wrapper computes (ops/fused.py fwd_plan, mac_plan).
 
 #include <cstdint>
 #include <cstring>
 #include <cuda_runtime.h>
 
 #define LMAX 4
+// Both kernels are compiled for at most 64 registers a thread, so that
+// registers never cap an SM below 32 resident warps (ops/fused.py assumes
+// it when it plans blocks per SM).
+#define FWD_THREADS_MAX 1024
+#define MAC_THREADS 256
+#define MAC_MIN_BLOCKS 4
+// Butterfly stages per shared-memory exchange of the NTTs (the last round
+// of a transform takes what is left).
+#define RADIX_LOG 4
 
 struct RnsConsts {
   uint32_t p[LMAX];
@@ -53,6 +96,24 @@ struct RnsConsts {
   uint32_t w_s[LMAX][LMAX];
   uint32_t two_k[LMAX][LMAX];     // [i][k]: 2^{k_bits(p_i)} mod p_k
   uint32_t kmask[LMAX];           // 2^{k_bits(p_i) + 1} - 1
+};
+
+// Launch plans, as ops/fused.py's FwdPlan.words() / MacPlan.words() lay
+// them out.
+struct FwdPlan {
+  int limbs;    // limbs per block: L, or 1
+  int digits;   // kept digits per block: l - prune, or 1
+  int threads;
+  int smem;     // dynamic shared memory, bytes
+  int grid;
+};
+
+struct MacPlan {
+  int gates;    // G, gates per block
+  int chunk;    // coefficients per staged chunk
+  int threads;
+  int smem;
+  int grid;
 };
 
 __device__ __forceinline__ uint32_t csub(uint32_t x, uint32_t p) {
@@ -69,6 +130,14 @@ __device__ __forceinline__ uint32_t shoup_lazy(uint32_t a, uint32_t w,
 __device__ __forceinline__ uint32_t shoup(uint32_t a, uint32_t w, uint32_t ws,
                                           uint32_t p) {
   return csub(shoup_lazy(a, w, ws, p), p);
+}
+
+// x mod p for x < 2^63, mu = floor((2^64 - 1) / p), p < 2^30: the
+// quotient estimate is short by at most 1, so x - q p < 2p < 2^32.
+__device__ __forceinline__ uint32_t barrett(unsigned long long x, uint32_t p,
+                                            unsigned long long mu) {
+  const unsigned long long q = __umul64hi(x, mu);
+  return csub((uint32_t)x - (uint32_t)q * p, p);
 }
 
 __device__ __forceinline__ uint32_t addmod(uint32_t a, uint32_t b, uint32_t p) {
@@ -110,203 +179,485 @@ __device__ __forceinline__ void threefry2x32_20(uint32_t k0, uint32_t k1,
   y1 = x1;
 }
 
-// Merged (Longa-Naehrig) forward negacyclic NTT of x[0..m) in shared
-// memory; block-constant twiddles tw[2^s + blk] = psi^{F/2}. Input < 4p,
-// output < 4p in bit-reversed hat order.
-__device__ void ntt_fwd_smem(uint32_t* x, const uint32_t* __restrict__ tw,
-                             const uint32_t* __restrict__ tws, uint32_t p,
-                             int m, int logm) {
-  const uint32_t two_p = 2 * p;
-  const int half_m = m >> 1;
-  for (int s = 0; s < logm; ++s) {
-    const int lg_len = logm - 1 - s;
-    const int len = 1 << lg_len;
-    for (int j = threadIdx.x; j < half_m; j += blockDim.x) {
-      const int blk = j >> lg_len;
-      const int i0 = (blk << (lg_len + 1)) + (j & (len - 1));
-      const int i1 = i0 + len;
-      const int ti = (1 << s) + blk;
-      const uint32_t u = csub(x[i0], two_p);
-      const uint32_t v = shoup_lazy(x[i1], tw[ti], tws[ti], p);
-      x[i0] = u + v;
-      x[i1] = u + two_p - v;
+// Shared-memory word of coefficient a: one pad word per 32. Polynomials sit
+// `pitch` words apart: m + m/32, and one more in the forward kernel, whose
+// last NTT round puts neighbouring polynomials on neighbouring threads (the
+// odd pitch puts them on different banks).
+__device__ __forceinline__ int pad(int a) { return a + (a >> 5); }
+
+__device__ __forceinline__ uint4 ldg4(const uint32_t* p) {
+  return __ldg(reinterpret_cast<const uint4*>(p));
+}
+
+__device__ __forceinline__ void st4(uint32_t* p, uint32_t a, uint32_t b,
+                                    uint32_t c, uint32_t d) {
+  *reinterpret_cast<uint4*>(p) = make_uint4(a, b, c, d);
+}
+
+__device__ __forceinline__ void cp_async16(uint32_t* smem, const uint32_t* g) {
+  const uint32_t s = static_cast<uint32_t>(__cvta_generic_to_shared(smem));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s), "l"(g)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// ---------------------------------------------------------------------------
+// Register-blocked NTTs on npoly polynomials in padded shared memory
+// (polynomial q at x + q * pitch, its modulus p_of[q % nl], its twiddles in
+// device memory at tw + (q % nl) * tw_pitch with Shoup companions m words
+// further on).
+// ---------------------------------------------------------------------------
+
+// Forward (merged Longa-Naehrig) stages s0 .. s0+R-1: group g of a thread
+// holds the 2^R words base + e * stride, stride = m >> (s0 + R), and stage
+// s0+st pairs e with e + 2^{R-1-st} under the block-constant twiddle
+// tw[2^{s0+st} + blk]. The same butterflies as one stage at a time: inputs
+// < 4p, outputs < 4p, bit-reversed hat order at the end.
+template <int R>
+__device__ __forceinline__ void fwd_round(uint32_t* x, int pitch, int npoly,
+                                          int logm, int s0, const uint32_t* tw,
+                                          int tw_pitch, int nl,
+                                          const uint32_t* p_of) {
+  constexpr int N = 1 << R;
+  const int m = 1 << logm;
+  const int lg_groups = logm - R;
+  const int lg_stride = logm - s0 - R;
+  const int total = npoly << lg_groups;
+  // In the last round every group has twiddles of its own: neighbouring
+  // threads then take the same group of different polynomials, so that
+  // polynomials of one limb share each twiddle load.
+  const bool poly_minor = lg_stride == 0;
+  for (int w = threadIdx.x; w < total; w += blockDim.x) {
+    const int q = poly_minor ? w % npoly : w >> lg_groups;
+    const int g = poly_minor ? w / npoly : w & ((1 << lg_groups) - 1);
+    const int li = nl == 1 ? 0 : q % nl;
+    const uint32_t p = p_of[li], two_p = 2 * p;
+    const uint32_t* t = tw + li * tw_pitch;
+    uint32_t* xq = x + q * pitch;
+    const int b0 = g >> lg_stride;
+    const int base = (b0 << (lg_stride + R)) + (g & ((1 << lg_stride) - 1));
+    uint32_t v[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = xq[pad(base + (e << lg_stride))];
+    // butterfly k of stage st: sub-block bl = k >> lh, pair (e, e + 2^lh);
+    // one constant-trip loop per stage, so that v[] stays in registers
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      const int lh = R - 1 - st;
+      uint32_t wv = 0, ws = 0;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const int bl = k >> lh, j = k & ((1 << lh) - 1);
+        if (j == 0) {
+          const int ti = (1 << (s0 + st)) + (b0 << st) + bl;
+          wv = __ldg(t + ti);
+          ws = __ldg(t + m + ti);
+        }
+        const int e = (bl << (lh + 1)) + j;
+        const uint32_t u = csub(v[e], two_p);
+        const uint32_t r = shoup_lazy(v[e + (1 << lh)], wv, ws, p);
+        v[e] = u + r;
+        v[e + (1 << lh)] = u + two_p - r;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < N; ++e) xq[pad(base + (e << lg_stride))] = v[e];
   }
 }
 
-// Decimation-in-time inverse NTT (the JAX package's ntt_inv stage order):
-// stage s pairs (blk*2h + j, blk*2h + h + j) with twiddle itw[h + j].
-// Input < 4p, output < 4p before the post-twist.
-__device__ void ntt_inv_smem(uint32_t* x, const uint32_t* __restrict__ itw,
-                             const uint32_t* __restrict__ itws, uint32_t p,
-                             int m, int logm) {
+// Inverse (decimation in time, the JAX package's ntt_inv stage order)
+// stages s0 .. s0+R-1: group g holds base + e * 2^{s0}, base = blk *
+// 2^{s0+R} + j with j < 2^{s0}; stage s0+st pairs e with e + 2^{st} under
+// itw[2^{s0+st} + j + (e mod 2^{st}) * 2^{s0}]. Inputs < 4p, outputs < 4p.
+template <int R>
+__device__ __forceinline__ void inv_round(uint32_t* x, int pitch, int npoly,
+                                          int logm, int s0, const uint32_t* tw,
+                                          uint32_t p) {
+  constexpr int N = 1 << R;
+  const int m = 1 << logm;
+  const int lg_groups = logm - R;
+  const int total = npoly << lg_groups;
   const uint32_t two_p = 2 * p;
-  const int half_m = m >> 1;
-  for (int s = 0; s < logm; ++s) {
-    const int h = 1 << s;
-    for (int j = threadIdx.x; j < half_m; j += blockDim.x) {
-      const int off = j & (h - 1);
-      const int i0 = ((j >> s) << (s + 1)) + off;
-      const int i1 = i0 + h;
-      const uint32_t a = csub(x[i0], two_p);
-      const uint32_t t = shoup_lazy(x[i1], itw[h + off], itws[h + off], p);
-      x[i0] = a + t;
-      x[i1] = a + two_p - t;
+  for (int w = threadIdx.x; w < total; w += blockDim.x) {
+    const int q = w >> lg_groups;
+    const int g = w & ((1 << lg_groups) - 1);
+    const int j = g & ((1 << s0) - 1);
+    const int base = ((g >> s0) << (s0 + R)) + j;
+    uint32_t* xq = x + q * pitch;
+    uint32_t v[N];
+#pragma unroll
+    for (int e = 0; e < N; ++e) v[e] = xq[pad(base + (e << s0))];
+    // butterfly k of stage st: offset o = k >> lb within the half, pair
+    // (e, e + 2^st); one constant-trip loop per stage (see fwd_round)
+#pragma unroll
+    for (int st = 0; st < R; ++st) {
+      const int lb = R - 1 - st;  // log2 of the pairs sharing a twiddle
+      uint32_t wv = 0, ws = 0;
+#pragma unroll
+      for (int k = 0; k < N / 2; ++k) {
+        const int o = k >> lb, bb = k & ((1 << lb) - 1);
+        if (bb == 0) {
+          const int ti = (1 << (s0 + st)) + j + (o << s0);
+          wv = __ldg(tw + ti);
+          ws = __ldg(tw + m + ti);
+        }
+        const int e = (bb << (st + 1)) + o;
+        const uint32_t a = csub(v[e], two_p);
+        const uint32_t r = shoup_lazy(v[e + (1 << st)], wv, ws, p);
+        v[e] = a + r;
+        v[e + (1 << st)] = a + two_p - r;
+      }
     }
-    __syncthreads();
+#pragma unroll
+    for (int e = 0; e < N; ++e) xq[pad(base + (e << s0))] = v[e];
   }
 }
 
-template <int L>
-__global__ void flatten_ntt_fwd_kernel(
+// Whole transforms: rounds of up to 2^RADIX_LOG words per thread, one
+// __syncthreads after each. The caller synchronises before the first.
+__device__ void ntt_fwd_blocked(uint32_t* x, int pitch, int npoly, int logm,
+                                const uint32_t* tw, int tw_pitch, int nl,
+                                const uint32_t* p_of) {
+  for (int s0 = 0; s0 < logm;) {
+    const int r = min(RADIX_LOG, logm - s0);
+    switch (r) {
+      case 4: fwd_round<4>(x, pitch, npoly, logm, s0, tw, tw_pitch, nl, p_of); break;
+      case 3: fwd_round<3>(x, pitch, npoly, logm, s0, tw, tw_pitch, nl, p_of); break;
+      case 2: fwd_round<2>(x, pitch, npoly, logm, s0, tw, tw_pitch, nl, p_of); break;
+      default: fwd_round<1>(x, pitch, npoly, logm, s0, tw, tw_pitch, nl, p_of); break;
+    }
+    __syncthreads();
+    s0 += r;
+  }
+}
+
+__device__ void ntt_inv_blocked(uint32_t* x, int pitch, int npoly, int logm,
+                                const uint32_t* tw, uint32_t p) {
+  for (int s0 = 0; s0 < logm;) {
+    const int r = min(RADIX_LOG, logm - s0);
+    switch (r) {
+      case 4: inv_round<4>(x, pitch, npoly, logm, s0, tw, p); break;
+      case 3: inv_round<3>(x, pitch, npoly, logm, s0, tw, p); break;
+      case 2: inv_round<2>(x, pitch, npoly, logm, s0, tw, p); break;
+      default: inv_round<1>(x, pitch, npoly, logm, s0, tw, p); break;
+    }
+    __syncthreads();
+    s0 += r;
+  }
+}
+
+// ---------------------------------------------------------------------------
+// flatten_ntt_fwd
+// ---------------------------------------------------------------------------
+
+// Block (gate b, operand op, limb group, digit group): limbs k0 .. k0+KL-1,
+// kept digits i0 .. i0+KD-1. Shared memory: KL*KD padded polynomials (digit
+// major).
+template <int L, bool RANDOMIZED>
+__global__ void __launch_bounds__(FWD_THREADS_MAX) flatten_ntt_fwd_kernel(
     const uint32_t* __restrict__ acc, uint32_t* __restrict__ d_hat,
-    const uint32_t* __restrict__ tables, const RnsConsts c, int B, int m,
-    int logm, int prune, int close, int randomized, uint32_t seed_lo,
+    const uint32_t* __restrict__ tables, const __grid_constant__ RnsConsts c,
+    const FwdPlan pl,
+    int B, int m, int logm, int prune, int close, uint32_t seed_lo,
     uint32_t seed_hi, uint32_t step) {
-  extern __shared__ uint32_t sm[];
+  extern __shared__ __align__(16) uint32_t sm[];
   const int lk = L - prune;
+  const int KL = pl.limbs, KD = pl.digits;
   int bid = blockIdx.x;
-  const int k = bid % L;
-  bid /= L;
-  const int ik = bid % lk;
-  bid /= lk;
+  const int lg = bid % (L / KL);
+  bid /= L / KL;
+  const int dg = bid % (lk / KD);
+  bid /= lk / KD;
   const int op = bid % 2;
   const int b = bid / 2;
-  const int i = prune + ik;  // digit index
-  const uint32_t pk = c.p[k];
-  const uint32_t s_ik = c.s_mod[i][k];
+  const int k0 = lg * KL, i0 = prune + dg * KD;
+  const int pitch = m + (m >> 5) + 1;
+  const int npoly = KL * KD;
+  const int quads = m >> 2;
+
   const uint32_t* x = acc + ((size_t)op * B + b) * L * m;
   constexpr int NP = (L + 1) / 2;
-
-  for (int idx = threadIdx.x; idx < m; idx += blockDim.x) {
-    uint32_t y[L];
+  for (int qd = threadIdx.x; qd < quads; qd += blockDim.x) {
+    uint32_t yq[L][4];
 #pragma unroll
-    for (int j = 0; j < L; ++j) y[j] = x[(size_t)j * m + idx];
-    uint32_t mask_ik = 0;
-    if (randomized) {
-      uint32_t words[2 * NP];
-      const uint32_t ctr0 = (uint32_t)b * (uint32_t)m + (uint32_t)idx;
+    for (int j = 0; j < L; ++j) {
+      const uint4 v = ldg4(x + (size_t)j * m + 4 * qd);
+      yq[j][0] = v.x; yq[j][1] = v.y; yq[j][2] = v.z; yq[j][3] = v.w;
+    }
 #pragma unroll
-      for (int pr = 0; pr < NP; ++pr) {
-        const uint32_t ctr1 = (step * 2u + (uint32_t)op) * (uint32_t)NP + pr;
-        threefry2x32_20(seed_lo, seed_hi, ctr0, ctr1, words[2 * pr],
-                        words[2 * pr + 1]);
+    for (int cc = 0; cc < 4; ++cc) {
+      const int idx = 4 * qd + cc;
+      uint32_t y[L];
+#pragma unroll
+      for (int j = 0; j < L; ++j) y[j] = yq[j][cc];
+      uint32_t mk[L][L];  // randomized: mask e of digit d in limb j
+#pragma unroll
+      for (int d = 0; d < L; ++d)
+#pragma unroll
+        for (int j = 0; j < L; ++j) mk[d][j] = 0;
+      if (RANDOMIZED) {
+        uint32_t words[2 * NP];
+        const uint32_t ctr0 = (uint32_t)b * (uint32_t)m + (uint32_t)idx;
+#pragma unroll
+        for (int pr = 0; pr < NP; ++pr) {
+          const uint32_t ctr1 = (step * 2u + (uint32_t)op) * (uint32_t)NP + pr;
+          threefry2x32_20(seed_lo, seed_hi, ctr0, ctr1, words[2 * pr],
+                          words[2 * pr + 1]);
+        }
+        // rand_x = x - sum_d mask_d * w_d; digits below `prune` are unmasked
+#pragma unroll
+        for (int d = 0; d < L; ++d) {
+          if (d < prune) continue;
+          const uint32_t v = words[d] & c.kmask[d];
+#pragma unroll
+          for (int j = 0; j < L; ++j) {
+            const uint32_t e = submod(v % c.p[j], c.two_k[d][j], c.p[j]);
+            mk[d][j] = e;
+            y[j] = submod(y[j], shoup(e, c.w[d][j], c.w_s[d][j], c.p[j]), c.p[j]);
+          }
+        }
       }
-      // rand_x = x - sum_d mask_d * w_d; digits below `prune` are unmasked
+#pragma unroll
+      for (int j = 0; j < L; ++j) y[j] = addmod(y[j], c.offset[j], c.p[j]);
+      // mixed-radix chain up to the block's last digit
+      uint32_t dig[L];
 #pragma unroll
       for (int d = 0; d < L; ++d) {
-        if (d < prune) continue;
-        const uint32_t v = words[d] & c.kmask[d];
+        dig[d] = 0;
+        if (d < i0 + KD) {
+          uint32_t t = y[d];
+#pragma unroll
+          for (int j = 0; j < d; ++j) {
+            t = submod(t, cross(dig[j], c.p[d], close), c.p[d]);
+            t = shoup(t, c.inv_pj[d][j], c.inv_pj_s[d][j], c.p[d]);
+          }
+          dig[d] = t;
+        }
+      }
+#pragma unroll
+      for (int d = 0; d < L; ++d) {
+        if (d < i0 || d >= i0 + KD) continue;
 #pragma unroll
         for (int j = 0; j < L; ++j) {
-          const uint32_t e = submod(v % c.p[j], c.two_k[d][j], c.p[j]);
-          if (d == i && j == k) mask_ik = e;
-          y[j] = submod(y[j], shoup(e, c.w[d][j], c.w_s[d][j], c.p[j]), c.p[j]);
+          if (j < k0 || j >= k0 + KL) continue;
+          uint32_t e = submod(cross(dig[d], c.p[j], close), c.s_mod[d][j], c.p[j]);
+          if (RANDOMIZED) e = addmod(e, mk[d][j], c.p[j]);
+          sm[((d - i0) * KL + (j - k0)) * pitch + pad(idx)] = e;
         }
       }
     }
-#pragma unroll
-    for (int j = 0; j < L; ++j) y[j] = addmod(y[j], c.offset[j], c.p[j]);
-    // mixed-radix chain up to digit i
-    uint32_t dig[L];
-    uint32_t di = 0;
-#pragma unroll
-    for (int d = 0; d < L; ++d) {
-      if (d <= i) {
-        uint32_t t = y[d];
-#pragma unroll
-        for (int j = 0; j < d; ++j) {
-          t = submod(t, cross(dig[j], c.p[d], close), c.p[d]);
-          t = shoup(t, c.inv_pj[d][j], c.inv_pj_s[d][j], c.p[d]);
-        }
-        dig[d] = t;
-        if (d == i) di = t;
-      }
-    }
-    uint32_t e = submod(cross(di, pk, close), s_ik, pk);
-    if (randomized) e = addmod(e, mask_ik, pk);
-    sm[idx] = e;
   }
   __syncthreads();
-  const uint32_t* tab = tables + (size_t)k * 10 * m;
-  ntt_fwd_smem(sm, tab, tab + m, pk, m, logm);
-  uint32_t* out = d_hat + (((size_t)b * 2 * lk + op * lk + ik) * L + k) * m;
-  for (int idx = threadIdx.x; idx < m; idx += blockDim.x) {
-    out[idx] = csub(csub(sm[idx], 2 * pk), pk);
+  ntt_fwd_blocked(sm, pitch, npoly, logm, tables + (size_t)k0 * 10 * m, 10 * m,
+                  KL, c.p + k0);
+  for (int w = threadIdx.x; w < npoly * quads; w += blockDim.x) {
+    const int q = w >> (logm - 2), qd = w & (quads - 1);
+    const int ik = dg * KD + q / KL, k = k0 + q % KL;
+    const uint32_t p = c.p[k];
+    const uint32_t* xs = sm + q * pitch;
+    uint32_t o[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) o[cc] = csub(csub(xs[pad(4 * qd + cc)], 2 * p), p);
+    st4(d_hat + (((size_t)b * 2 * lk + op * lk + ik) * L + k) * m + 4 * qd,
+        o[0], o[1], o[2], o[3]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// mac_rotate_ntt_inv
+// ---------------------------------------------------------------------------
 
 // t_mode: 0 = T-term by w-multiplies; 1 = by w-multiplies, and write val to
 // carry; 2 = read T from carry (the previous step's canonical val), write
 // this step's val back.
+//
+// Block (column col, limb k, gates b0 .. b0+G-1). Shared memory: G padded
+// vals; the ring, 2 buffers (1 if one chunk is the whole row) of 2lk (G +
+// 1) rows x chunk words: the 2lk kept key rows (the MAC sums exact 64-bit
+// products, so it needs no Shoup companions), then the 2lk d_hat rows of
+// each gate. Chunk ch+1 streams in by cp.async
+// while chunk ch is computed from shared memory, one quad
+// of one gate per thread (the plan keeps G x chunk / 4 <= MAC_THREADS);
+// the thread's x^u power and carried T for chunk ch+1 are loaded from
+// device memory before chunk ch is computed.
 template <int L>
-__global__ void mac_rotate_ntt_inv_kernel(
+__global__ void __launch_bounds__(MAC_THREADS, MAC_MIN_BLOCKS) mac_rotate_ntt_inv_kernel(
     const uint32_t* __restrict__ d_hat, const uint32_t* __restrict__ key,
-    const uint32_t* __restrict__ key_s, const uint32_t* __restrict__ u,
-    uint32_t* __restrict__ acc_out, uint32_t* __restrict__ carry,
-    const uint32_t* __restrict__ tables, const RnsConsts c, int B, int m,
-    int logm, int prune, int t_mode) {
-  extern __shared__ uint32_t sm[];
-  const int l = L;
-  const int lk = l - prune;
-  int bid = blockIdx.x;
-  const int k = bid % L;
-  bid /= L;
-  const int col = bid % 2;
-  const int b = bid / 2;
+    const uint32_t* __restrict__ u, uint32_t* __restrict__ acc_out,
+    uint32_t* __restrict__ carry, const uint32_t* __restrict__ tables,
+    const __grid_constant__ RnsConsts c, const MacPlan pl,
+    int B, int m, int logm, int prune, int t_mode) {
+  extern __shared__ __align__(16) uint32_t sm[];
+  const int lk = L - prune;
+  const int G = pl.gates, C = pl.chunk;
+  // limb-major grid: the blocks an SM holds at once mostly share a limb,
+  // and with it the limb's tables in L1; the two columns of a tile are
+  // neighbours, so their d_hat rows come from device memory once
+  const int tiles = (B + G - 1) / G;
+  const int col = blockIdx.x % 2;
+  const int b0 = (blockIdx.x / 2 % tiles) * G;
+  const int k = blockIdx.x / (2 * tiles);
+  const int gv = min(G, B - b0);  // gates of a ragged last tile
+  const int pitch = m + (m >> 5);
+  const int nch = m / C;
+  const int S = nch > 1 ? 2 : 1;  // ring buffers
+  const int key_rows = 2 * lk;
+  const int ring_words = (key_rows + 2 * lk * G) * C;
+  uint32_t* vals = sm;
+  uint32_t* ring = vals + G * pitch;
   const uint32_t p = c.p[k];
   const uint32_t* tab = tables + (size_t)k * 10 * m;
-  const uint32_t* pw = tab + 6 * (size_t)m;
-  const uint32_t* pws = tab + 8 * (size_t)m;
-  const uint32_t uk = (uint32_t)u[b];
   const uint32_t mask2m = 2u * (uint32_t)m - 1u;
-  const uint32_t* dh = d_hat + (size_t)b * 2 * lk * L * m;
   const size_t krow_stride = (size_t)2 * L * m;
   const size_t kcol = ((size_t)col * L + k) * m;
-  const size_t ak = (((size_t)col * B + b) * L + k) * m;
-  uint32_t wv[L], wsv[L];
+  const int qpc = C >> 2;  // quads per chunk row
+
+  // T-term multiplier of each d_hat row r (rows col*lk .. col*lk+lk-1)
+  uint32_t wr[2 * L];
 #pragma unroll
-  for (int i = 0; i < L; ++i) {
-    wv[i] = i < lk ? c.w[prune + i][k] : 0u;
-    wsv[i] = i < lk ? c.w_s[prune + i][k] : 0u;
+  for (int r = 0; r < 2 * L; ++r) {
+    const int i = r - col * lk;
+    const bool on = r < 2 * lk && i >= 0 && i < lk;
+    wr[r] = on ? c.w[prune + i][k] : 0u;
   }
 
-  for (int idx = threadIdx.x; idx < m; idx += blockDim.x) {
-    uint32_t s = 0;
-    for (int r = 0; r < 2 * lk; ++r) {
-      const int krow = r < lk ? prune + r : l + prune + (r - lk);
-      const size_t ko = krow * krow_stride + kcol + idx;
-      const uint32_t d = dh[((size_t)r * L + k) * m + idx];
-      s = addmod(s, shoup(d, key[ko], key_s[ko], p), p);
-    }
-    uint32_t t = 0;
-    if (t_mode == 2) {
-      t = carry[ak + idx];
-    } else {
-#pragma unroll
-      for (int i = 0; i < L; ++i) {
-        if (i < lk) {
-          const uint32_t d = dh[((size_t)(col * lk + i) * L + k) * m + idx];
-          t = addmod(t, shoup(d, wv[i], wsv[i], p), p);
+  // One commit group per call, empty past the last chunk, so that chunk ch
+  // has landed once at most S - 1 groups are pending.
+  // Thread t copies quad t % qpc of rows t / qpc, t / qpc + rstep, ...
+  const int rstep = blockDim.x / qpc;
+  auto stage = [&](int ch) {
+    if (ch < nch) {
+      uint32_t* dst = ring + (ch % S) * ring_words + 4 * (threadIdx.x % qpc);
+      const size_t off = (size_t)ch * C + 4 * (threadIdx.x % qpc);
+      const int rows = key_rows + 2 * lk * gv;
+      for (int row = threadIdx.x / qpc; row < rows; row += rstep) {
+        const uint32_t* src;
+        if (row < key_rows) {
+          const int krow = row < lk ? prune + row : L + prune + (row - lk);
+          src = key + krow * krow_stride + kcol;
+        } else {
+          const int g = (row - key_rows) / (2 * lk), r = row - key_rows - g * 2 * lk;
+          src = d_hat + (((size_t)(b0 + g) * 2 * lk + r) * L + k) * m;
         }
+        cp_async16(dst + row * C, src + off);
       }
     }
-    const uint32_t ev = 2u * (__brev((uint32_t)idx) >> (32 - logm)) + 1u;
-    const uint32_t e = (ev * uk) & mask2m;
-    const uint32_t rot = shoup(s, pw[e], pws[e], p);
-    const uint32_t val = addmod(submod(rot, s, p), t, p);
-    if (t_mode != 0) carry[ak + idx] = val;
-    sm[idx] = val;
+    cp_async_commit();
+  };
+
+  for (int ch = 0; ch < S - 1; ++ch) stage(ch);
+  // limb k's tables: inv | inv_s | post | post_s | pw (2m) | pw_s (2m)
+  const uint32_t* T = tab + 2 * (size_t)m;
+  const uint32_t* pw = T + 4 * (size_t)m;
+  const uint32_t* pws = T + 6 * (size_t)m;
+  // I = psi^{m/2}, a 4th root of unity: coefficient 4q + cc has exponent
+  // e(4q) + br2(cc) (m/2) u mod 2m, so x^u costs one gather per quad and
+  // a multiply by I^{br2(cc) u mod 4} (1, I, -1 or -I)
+  const uint32_t rI = __ldg(tab + 6 * (size_t)m + m / 2);
+  const uint32_t rIs = __ldg(tab + 8 * (size_t)m + m / 2);
+  const unsigned long long mu = ~0ull / p;  // Barrett: floor(2^64 / p)
+
+  // this thread's quad: gate g, quad qd of every chunk
+  const int g = threadIdx.x / qpc, qd = threadIdx.x % qpc;
+  const bool active = g < gv;
+  const int b = b0 + (active ? g : 0);
+  const uint32_t uk = __ldg(u + b);
+  const size_t arow = (((size_t)col * B + b) * L + k) * m;
+  uint32_t nw = 0, nws = 0, nt[4] = {0, 0, 0, 0};
+  auto prefetch = [&](int ch) {  // x^u power and carried T of chunk ch
+    if (!active || ch >= nch) return;
+    const int idx0 = ch * C + 4 * qd;
+    const uint32_t e = ((2u * (__brev((uint32_t)idx0) >> (32 - logm)) + 1u) * uk) & mask2m;
+    nw = __ldg(pw + e);
+    nws = __ldg(pws + e);
+    if (t_mode == 2) {
+      const uint4 cv = *reinterpret_cast<const uint4*>(carry + arow + idx0);
+      nt[0] = cv.x; nt[1] = cv.y; nt[2] = cv.z; nt[3] = cv.w;
+    }
+  };
+  prefetch(0);
+
+  for (int ch = 0; ch < nch; ++ch) {
+    stage(ch + S - 1);
+    if (S == 1) {
+      cp_async_wait<0>();
+    } else {
+      cp_async_wait<1>();
+    }
+    __syncthreads();
+    const uint32_t pwv = nw, pwsv = nws;
+    uint32_t t[4] = {nt[0], nt[1], nt[2], nt[3]};
+    prefetch(ch + 1);
+    if (active) {
+      const uint32_t* kb = ring + (ch % S) * ring_words;
+      const int idx0 = ch * C + 4 * qd;
+      const uint32_t* dg = kb + (key_rows + 2 * lk * g) * C + 4 * qd;
+      // MAC and T-term as exact 64-bit sums (at most 2L products below
+      // p^2 < 2^60), each reduced once
+      unsigned long long s64[4] = {0, 0, 0, 0}, t64[4] = {0, 0, 0, 0};
+#pragma unroll
+      for (int r = 0; r < 2 * L; ++r) {
+        if (r >= 2 * lk) continue;
+        const uint4 dv = *reinterpret_cast<const uint4*>(dg + r * C);
+        const uint4 kv = *reinterpret_cast<const uint4*>(kb + r * C + 4 * qd);
+        const uint32_t d[4] = {dv.x, dv.y, dv.z, dv.w};
+        const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
+#pragma unroll
+        for (int cc = 0; cc < 4; ++cc) s64[cc] += (unsigned long long)d[cc] * kw[cc];
+        if (t_mode != 2 && wr[r] != 0u) {
+#pragma unroll
+          for (int cc = 0; cc < 4; ++cc) t64[cc] += (unsigned long long)d[cc] * wr[r];
+        }
+      }
+      uint32_t s[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        s[cc] = barrett(s64[cc], p, mu);
+        if (t_mode != 2) t[cc] = barrett(t64[cc], p, mu);
+      }
+      uint32_t val[4];
+#pragma unroll
+      for (int cc = 0; cc < 4; ++cc) {
+        const uint32_t j = ((uint32_t)((cc & 1) * 2 + (cc >> 1)) * uk) & 3u;
+        uint32_t rot = shoup(s[cc], pwv, pwsv, p);
+        if (j & 1u) rot = shoup(rot, rI, rIs, p);
+        if ((j & 2u) && rot) rot = p - rot;
+        val[cc] = addmod(submod(rot, s[cc], p), t[cc], p);
+        vals[g * pitch + pad(idx0 + cc)] = val[cc];
+      }
+      if (t_mode != 0) st4(carry + arow + idx0, val[0], val[1], val[2], val[3]);
+    }
+    __syncthreads();  // the next stage() overwrites buffer ch % S
   }
-  __syncthreads();
-  ntt_inv_smem(sm, tab + 2 * (size_t)m, tab + 3 * (size_t)m, p, m, logm);
-  const uint32_t* post = tab + 4 * (size_t)m;
-  const uint32_t* post_s = tab + 5 * (size_t)m;
-  for (int idx = threadIdx.x; idx < m; idx += blockDim.x) {
-    acc_out[ak + idx] = shoup(sm[idx], post[idx], post_s[idx], p);
+
+  ntt_inv_blocked(vals, pitch, gv, logm, T, p);
+  const uint32_t* post = T + 2 * (size_t)m;
+  const uint32_t* post_s = T + 3 * (size_t)m;
+  for (int w = threadIdx.x; w < gv * (m >> 2); w += blockDim.x) {
+    const int g = w >> (logm - 2);
+    const int idx0 = 4 * (w & ((m >> 2) - 1));
+    const uint32_t* xs = vals + g * pitch;
+    const uint4 pq = ldg4(post + idx0), psq = ldg4(post_s + idx0);
+    const uint32_t pv[4] = {pq.x, pq.y, pq.z, pq.w}, psv[4] = {psq.x, psq.y, psq.z, psq.w};
+    uint32_t o[4];
+#pragma unroll
+    for (int cc = 0; cc < 4; ++cc) o[cc] = shoup(xs[pad(idx0 + cc)], pv[cc], psv[cc], p);
+    st4(acc_out + (((size_t)col * B + b0 + g) * L + k) * m + idx0, o[0], o[1],
+        o[2], o[3]);
   }
 }
+
+// ---------------------------------------------------------------------------
+// Host side
+// ---------------------------------------------------------------------------
 
 static int log2i(int m) {
   int r = 0;
@@ -315,69 +666,83 @@ static int log2i(int m) {
 }
 
 template <typename K>
-static cudaError_t prepare(K kernel, size_t smem) {
+static cudaError_t prepare(K kernel, int smem) {
   if (smem > 48 * 1024) {
-    return cudaFuncSetAttribute(kernel,
-                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                                (int)smem);
+    return cudaFuncSetAttribute(
+        kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   }
   return cudaSuccess;
 }
 
-template <int L>
-static int launch_fwd(const uint32_t* acc, uint32_t* d_hat,
-                      const uint32_t* tables, const RnsConsts& c, int B, int m,
-                      int prune, int close, int randomized, uint32_t seed_lo,
-                      uint32_t seed_hi, uint32_t step, cudaStream_t stream) {
-  const size_t smem = (size_t)m * sizeof(uint32_t);
-  cudaError_t err = prepare(flatten_ntt_fwd_kernel<L>, smem);
+template <int L, bool RANDOMIZED>
+static int launch_fwd_mode(const uint32_t* acc, uint32_t* d_hat,
+                           const uint32_t* tables, const RnsConsts& c,
+                           const FwdPlan& pl, int B, int m, int prune,
+                           int close, uint32_t seed_lo, uint32_t seed_hi,
+                           uint32_t step, cudaStream_t stream) {
+  cudaError_t err = prepare(flatten_ntt_fwd_kernel<L, RANDOMIZED>, pl.smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = m / 2 < 256 ? m / 2 : 256;
-  const unsigned grid = (unsigned)B * 2u * (unsigned)(L - prune) * (unsigned)L;
-  flatten_ntt_fwd_kernel<L><<<grid, threads, smem, stream>>>(
-      acc, d_hat, tables, c, B, m, log2i(m), prune, close, randomized,
-      seed_lo, seed_hi, step);
+  flatten_ntt_fwd_kernel<L, RANDOMIZED><<<pl.grid, pl.threads, pl.smem, stream>>>(
+      acc, d_hat, tables, c, pl, B, m, log2i(m), prune, close, seed_lo,
+      seed_hi, step);
   return (int)cudaGetLastError();
 }
 
 template <int L>
+static int launch_fwd(const uint32_t* acc, uint32_t* d_hat,
+                      const uint32_t* tables, const RnsConsts& c,
+                      const FwdPlan& pl, int B, int m, int prune, int close,
+                      int randomized, uint32_t seed_lo, uint32_t seed_hi,
+                      uint32_t step, cudaStream_t stream) {
+  return randomized
+             ? launch_fwd_mode<L, true>(acc, d_hat, tables, c, pl, B, m, prune,
+                                        close, seed_lo, seed_hi, step, stream)
+             : launch_fwd_mode<L, false>(acc, d_hat, tables, c, pl, B, m, prune,
+                                         close, seed_lo, seed_hi, step, stream);
+}
+
+template <int L>
 static int launch_mac(const uint32_t* d_hat, const uint32_t* key,
-                      const uint32_t* key_s, const uint32_t* u,
+                      const uint32_t* u,
                       uint32_t* acc_out, uint32_t* carry,
-                      const uint32_t* tables, const RnsConsts& c, int B, int m,
-                      int prune, int t_mode, cudaStream_t stream) {
-  const size_t smem = (size_t)m * sizeof(uint32_t);
-  cudaError_t err = prepare(mac_rotate_ntt_inv_kernel<L>, smem);
+                      const uint32_t* tables, const RnsConsts& c,
+                      const MacPlan& pl, int B, int m, int prune, int t_mode,
+                      cudaStream_t stream) {
+  if (pl.gates * (pl.chunk / 4) > pl.threads) return (int)cudaErrorInvalidValue;
+  cudaError_t err = prepare(mac_rotate_ntt_inv_kernel<L>, pl.smem);
   if (err != cudaSuccess) return (int)err;
-  const int threads = m / 2 < 256 ? m / 2 : 256;
-  const unsigned grid = (unsigned)B * 2u * (unsigned)L;
-  mac_rotate_ntt_inv_kernel<L><<<grid, threads, smem, stream>>>(
-      d_hat, key, key_s, u, acc_out, carry, tables, c, B, m, log2i(m), prune,
-      t_mode);
+  mac_rotate_ntt_inv_kernel<L><<<pl.grid, pl.threads, pl.smem, stream>>>(
+      d_hat, key, u, acc_out, carry, tables, c, pl, B, m, log2i(m),
+      prune, t_mode);
   return (int)cudaGetLastError();
 }
 
 extern "C" {
 
-// Returns a cudaError_t (0 on success). `consts` is a host array laid out
-// as RnsConsts (sgfhe_tpu_torch/ops/fused.py builds it).
+// Each returns a cudaError_t (0 on success). `consts` is a host array laid
+// out as RnsConsts, `plan` one laid out as FwdPlan / MacPlan
+// (sgfhe_tpu_torch/ops/fused.py builds both). The MAC takes the key's
+// Shoup companions `key_s` with the key, as the plain version does, but
+// does not read them: its 64-bit sums need none.
 int sg_flatten_ntt_fwd(const uint32_t* acc, uint32_t* d_hat,
                        const uint32_t* tables, const uint32_t* consts, int B,
                        int L, int m, int prune, int close, int randomized,
                        uint32_t seed_lo, uint32_t seed_hi, uint32_t step,
-                       void* stream) {
+                       void* stream, const int32_t* plan) {
   RnsConsts c;
   std::memcpy(&c, consts, sizeof(c));
+  FwdPlan pl;
+  std::memcpy(&pl, plan, sizeof(pl));
   cudaStream_t st = (cudaStream_t)stream;
   switch (L) {
     case 2:
-      return launch_fwd<2>(acc, d_hat, tables, c, B, m, prune, close,
+      return launch_fwd<2>(acc, d_hat, tables, c, pl, B, m, prune, close,
                            randomized, seed_lo, seed_hi, step, st);
     case 3:
-      return launch_fwd<3>(acc, d_hat, tables, c, B, m, prune, close,
+      return launch_fwd<3>(acc, d_hat, tables, c, pl, B, m, prune, close,
                            randomized, seed_lo, seed_hi, step, st);
     case 4:
-      return launch_fwd<4>(acc, d_hat, tables, c, B, m, prune, close,
+      return launch_fwd<4>(acc, d_hat, tables, c, pl, B, m, prune, close,
                            randomized, seed_lo, seed_hi, step, st);
     default:
       return (int)cudaErrorInvalidValue;
@@ -389,20 +754,22 @@ int sg_mac_rotate_ntt_inv(const uint32_t* d_hat, const uint32_t* key,
                           uint32_t* acc_out, uint32_t* carry,
                           const uint32_t* tables, const uint32_t* consts,
                           int B, int L, int m, int prune, int t_mode,
-                          void* stream) {
+                          void* stream, const int32_t* plan) {
   RnsConsts c;
   std::memcpy(&c, consts, sizeof(c));
+  MacPlan pl;
+  std::memcpy(&pl, plan, sizeof(pl));
   cudaStream_t st = (cudaStream_t)stream;
   switch (L) {
     case 2:
-      return launch_mac<2>(d_hat, key, key_s, u, acc_out, carry, tables, c, B,
-                           m, prune, t_mode, st);
+      return launch_mac<2>(d_hat, key, u, acc_out, carry, tables, c,
+                           pl, B, m, prune, t_mode, st);
     case 3:
-      return launch_mac<3>(d_hat, key, key_s, u, acc_out, carry, tables, c, B,
-                           m, prune, t_mode, st);
+      return launch_mac<3>(d_hat, key, u, acc_out, carry, tables, c,
+                           pl, B, m, prune, t_mode, st);
     case 4:
-      return launch_mac<4>(d_hat, key, key_s, u, acc_out, carry, tables, c, B,
-                           m, prune, t_mode, st);
+      return launch_mac<4>(d_hat, key, u, acc_out, carry, tables, c,
+                           pl, B, m, prune, t_mode, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -32,6 +32,7 @@ from __future__ import annotations
 
 import ctypes
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -238,6 +239,166 @@ def mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, key_shoup, step: int, u,
 
 
 # ---------------------------------------------------------------------------
+# Launch plans: each kernel's block shape, chosen from (B, L, m, prune) and
+# the card's SM count. csrc/rotate.cu reads a plan as FwdPlan / MacPlan.
+# ---------------------------------------------------------------------------
+
+SMEM_BLOCK = 232_448     # shared memory one block may use (H100)
+SMEM_SM = 233_472        # shared memory of one SM
+SMEM_RESERVED = 1_024    # the runtime's share of each resident block
+THREADS_SM = 2_048
+BLOCKS_SM = 32
+REGS_SM = 65_536
+REGS_THREAD = 64         # rotate.cu compiles both kernels to at most this
+H100_SMS = 132
+FWD_MAX_THREADS = 1024   # rotate.cu FWD_THREADS_MAX
+MAC_THREADS = 256        # rotate.cu MAC_THREADS
+#: A MAC block stages 2(l - prune) key rows and as many d_hat rows per
+#: gate: the key costs about one gate's staging. Each chunk adds a wait
+#: and two barriers, about half a gate's work.
+KEY_STAGE_GATES = 1
+CHUNK_COST = 0.5
+MAX_M = 32_768           # one padded length-m polynomial must fit a block
+
+
+def smem_pitch(m: int, odd: bool = False) -> int:
+    """Words between polynomials in shared memory: one pad word per 32, and
+    one more in the forward kernel (csrc/rotate.cu pad)."""
+    return m + m // 32 + int(odd)
+
+
+def blocks_per_sm(smem: int, threads: int) -> int:
+    return min(SMEM_SM // (smem + SMEM_RESERVED), THREADS_SM // threads,
+               REGS_SM // (REGS_THREAD * threads), BLOCKS_SM)
+
+
+def fwd_smem(limbs: int, digits: int, m: int) -> int:
+    """Bytes of shared memory of a flatten_ntt_fwd block: its padded
+    polynomials."""
+    return 4 * limbs * digits * smem_pitch(m, odd=True)
+
+
+def mac_smem(gates: int, lk: int, m: int, chunk: int) -> int:
+    """Bytes of shared memory of a mac_rotate_ntt_inv block: its gates'
+    padded vals, then the ring of key and d_hat chunks (two buffers, one if
+    one chunk is the whole row)."""
+    ring = (1 if chunk == m else 2) * 2 * lk * (gates + 1) * chunk
+    return 4 * (gates * smem_pitch(m) + ring)
+
+
+def _check_envelope(m: int) -> None:
+    if m > MAX_M:
+        raise ValueError(
+            f"ring degree m = {m} exceeds the rotation kernels' envelope "
+            f"m <= {MAX_M} (n <= {MAX_M // 8}): each block holds a whole "
+            f"length-m NTT in at most {SMEM_BLOCK:,} bytes of shared memory"
+        )
+
+
+@dataclasses.dataclass(frozen=True)
+class FwdPlan:
+    """flatten_ntt_fwd: one block per (gate, operand, limb group, digit
+    group). All L limbs and all kept digits in one block where their
+    polynomials fit shared memory, else one limb, else one digit too."""
+
+    limbs: int
+    digits: int
+    threads: int
+    smem: int    # bytes of dynamic shared memory
+    grid: int
+    per_sm: int  # resident blocks per SM
+
+    def words(self) -> np.ndarray:
+        return np.array([self.limbs, self.digits, self.threads, self.smem, self.grid],
+                        dtype=np.int32)
+
+
+@dataclasses.dataclass(frozen=True)
+class MacPlan:
+    """mac_rotate_ntt_inv: one block per (column, limb, tile of `gates`
+    gates); the key rows and the gates' d_hat rows stream through a
+    double-buffered shared-memory ring, `chunk` coefficients at a time."""
+
+    gates: int
+    chunk: int
+    threads: int
+    smem: int
+    grid: int
+    per_sm: int
+    waves: int
+    last_wave_fill: float  # share of the last wave's block slots in use
+
+    def words(self) -> np.ndarray:
+        return np.array([self.gates, self.chunk, self.threads, self.smem, self.grid],
+                        dtype=np.int32)
+
+
+def _fwd_threads(smem: int) -> int:
+    """The smallest block that lets an SM hold the most threads: blocks
+    that finish at different times overlap one another's barriers."""
+    sizes = range(32, FWD_MAX_THREADS + 1, 32)
+    return max(sizes, key=lambda t: (blocks_per_sm(smem, t) * t, -t))
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(B: int, L: int, m: int, prune: int, sms: int = H100_SMS) -> FwdPlan:
+    """The largest block that fits: all L limbs and all kept digits, else one
+    limb, else one digit."""
+    _check_envelope(m)
+    lk = L - prune
+    for kl, kd in ((L, lk), (1, lk), (1, 1)):
+        smem = fwd_smem(kl, kd, m)
+        if smem > SMEM_BLOCK:
+            continue
+        threads = _fwd_threads(smem)
+        grid = B * 2 * (L // kl) * (lk // kd)
+        return FwdPlan(kl, kd, threads, smem, grid, blocks_per_sm(smem, threads))
+    raise ValueError(f"no flatten_ntt_fwd block fits m = {m}")
+
+
+@functools.lru_cache(maxsize=None)
+def mac_plan(B: int, L: int, m: int, prune: int, sms: int = H100_SMS) -> MacPlan:
+    """Pick G and the chunk. Each thread computes one quad of one gate per
+    chunk, so a chunk holds G x chunk / 4 quads: from half the block's
+    threads to all of them where shared memory allows. Three or more
+    blocks per SM come first, then two: fewer leave too few warps to hide
+    the latency of the chunks. Then the least modelled time: the block
+    slots the grid occupies (waves x blocks per SM) times a block's work,
+    G + KEY_STAGE_GATES + CHUNK_COST x chunks. Ties go to larger G, more
+    blocks per SM and larger chunks. The constants fit a sweep of every
+    plan at Params(64) and Params(512) on an H100 (ablate_rotate.py)."""
+    _check_envelope(m)
+    lk = L - prune
+    chunks = sorted({c for c in (m, 1024, 512, 256, 128, 64, 32) if c <= m}, reverse=True)
+    for least in (MAC_THREADS // 2, 1):
+        best = None
+        for g in range(1, min(B, 64) + 1):
+            grid = 2 * L * -(-B // g)
+            for c in chunks:
+                if not least <= g * c // 4 <= MAC_THREADS:
+                    continue
+                smem = mac_smem(g, lk, m, c)
+                if smem > SMEM_BLOCK:
+                    continue
+                per_sm = blocks_per_sm(smem, MAC_THREADS)
+                slots = sms * per_sm
+                waves = -(-grid // slots)
+                cost = waves * per_sm * (g + KEY_STAGE_GATES + CHUNK_COST * (m // c))
+                key = (per_sm < 3, per_sm < 2, cost, -g, -per_sm, -c)
+                if best is None or key < best[0]:
+                    fill = (grid - (waves - 1) * slots) / slots
+                    best = (key, MacPlan(g, c, MAC_THREADS, smem, grid, per_sm, waves, fill))
+        if best is not None:
+            return best[1]
+    raise ValueError(f"no mac_rotate_ntt_inv block fits m = {m}")
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(index: int) -> int:
+    return torch.cuda.get_device_properties(index).multi_processor_count
+
+
+# ---------------------------------------------------------------------------
 # Kernel wrappers
 # ---------------------------------------------------------------------------
 
@@ -280,6 +441,7 @@ def flatten_ntt_fwd(ctx, acc, step: int, seed2=None, prune: int = 0):
     _check("acc", acc, (2, B, L, m), acc.device)
     from .. import _build
 
+    plan = fwd_plan(B, L, m, prune, _sm_count(acc.device.index or 0)).words()
     lib = _build.load()
     d_hat = torch.empty((B, 2 * (L - prune), L, m), dtype=torch.int32, device=acc.device)
     lo, hi = (0, 0) if seed2 is None else (int(seed2[0]) & mm.MASK32, int(seed2[1]) & mm.MASK32)
@@ -288,6 +450,7 @@ def flatten_ntt_fwd(ctx, acc, step: int, seed2=None, prune: int = 0):
         ft.consts.ctypes.data_as(ctypes.c_void_p),
         B, L, m, prune, int(ft.close), int(seed2 is not None), lo, hi,
         int(step) & mm.MASK32, torch.cuda.current_stream().cuda_stream,
+        plan.ctypes.data_as(ctypes.c_void_p),
     )
     if rc != 0:
         raise RuntimeError(f"flatten_ntt_fwd launch failed: cudaError {rc}")
@@ -325,6 +488,7 @@ def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
         _check("carry", carry, (2, B, L, m), dev)
     from .. import _build
 
+    plan = mac_plan(B, L, m, prune, _sm_count(dev.index or 0)).words()
     lib = _build.load()
     acc = torch.empty((2, B, L, m), dtype=torch.int32, device=dev)
     step_bytes = key_hat[0].numel() * 4
@@ -334,6 +498,7 @@ def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
         carry.data_ptr() if t_mode else None, ft.tables.data_ptr(),
         ft.consts.ctypes.data_as(ctypes.c_void_p),
         B, L, m, prune, t_mode, torch.cuda.current_stream().cuda_stream,
+        plan.ctypes.data_as(ctypes.c_void_p),
     )
     if rc != 0:
         raise RuntimeError(f"mac_rotate_ntt_inv launch failed: cudaError {rc}")

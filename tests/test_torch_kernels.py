@@ -7,6 +7,8 @@ machine that has only PyTorch:
     python -m pytest tests/test_torch_kernels.py --noconftest -q
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 
@@ -18,6 +20,8 @@ torch.set_num_threads(1)
 import sgfhe_tpu_torch as T  # noqa: E402
 from sgfhe_tpu_torch.models import bootstrap as tbs  # noqa: E402
 from sgfhe_tpu_torch.ops import fused as tfused  # noqa: E402
+from sgfhe_tpu_torch.ops import modmath as mm  # noqa: E402
+from sgfhe_tpu_torch.utils import primes  # noqa: E402
 
 
 def _card():
@@ -75,3 +79,55 @@ def test_bootstrap_batch_on_card_truth_tables():
     y1, y2 = msg[0::2].bool().to(dev), msg[1::2].bool().to(dev)
     for lwe, want in zip(out, (y1 & y2, y1 | y2, y1 ^ y2)):
         assert torch.equal(T.decrypt_bit(sk, T.EncryptedBit(lwe)), want)
+
+
+def _ragged_batch(L, m, prune):
+    """A batch whose last gate tile is partial under the launch plan."""
+    for B in range(2, 200):
+        g = tfused.mac_plan(B, L, m, prune).gates
+        if g > 1 and B % g:
+            return B
+    return 2
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("L,m", [(3, 4096), (2, 8192), (3, 8192), (4, 4096)])
+@pytest.mark.parametrize("ragged", [False, True])
+def test_step_kernels_equal_plain_on_card(L, m, ragged):
+    """One step of each kernel against its plain version on random
+    canonical inputs and a random key slice, near-2^29 moduli, every prune,
+    exact and randomized flatten, every T-mode; B = 1, or a batch whose
+    last gate tile is partial."""
+    dev = _card()
+    mods = primes.find_rns_primes(2 * m, 1 << (29 * L - 2), (1 << (29 * L - 1)) - 1, L)
+    params = dataclasses.replace(T.Params.create(m // 8), moduli=mods)
+    ctx = T.make_context(params, device=dev)
+    rng = np.random.default_rng(L * m)
+    p = np.array(mods, dtype=np.int64).reshape(L, 1)
+
+    def canon(shape):
+        return rng.integers(0, 1 << 30, shape) % p
+
+    def on_card(a):
+        return mm.bits32(torch.as_tensor(a, device=dev))
+
+    key = canon((1, 2 * L, 2, L, m))
+    key_hat, key_s = on_card(key), on_card((key << 32) // p)
+    for prune in range(L):
+        B = _ragged_batch(L, m, prune) if ragged else 1
+        acc = on_card(canon((2, B, L, m)))
+        u = on_card(rng.integers(0, 2 * m, (B,)))
+        for seed2 in (None, (0x12345678, 0x9ABCDEF0)):
+            got = tfused.flatten_ntt_fwd(ctx, acc, 3, seed2, prune)
+            want = tfused.flatten_ntt_fwd_plain(ctx, acc, 3, seed2, prune)
+            assert torch.equal(got, want), (prune, seed2)
+        for t_mode in ((0, 1, 2) if prune == 0 else (0,)):
+            carry_k = on_card(canon((2, B, L, m))) if t_mode else None
+            carry_p = carry_k.clone() if t_mode else None
+            got = tfused.mac_rotate_ntt_inv(ctx, want, key_hat, key_s, 0, u, prune,
+                                            t_mode, carry_k)
+            exp = tfused.mac_rotate_ntt_inv_plain(ctx, want, key_hat, key_s, 0, u,
+                                                  prune, t_mode, carry_p)
+            assert torch.equal(got, exp), (prune, t_mode)
+            if t_mode:
+                assert torch.equal(carry_k, carry_p), (prune, t_mode)
