@@ -9,12 +9,16 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      keys: exact (carry and w-multiply T-modes), prune 1 and 2, randomized,
      and near-2^29 moduli with l = 3.
   2b. one step of each kernel against its plain version, bit for bit, at
-     L in {2, 3, 4} x m in {512, 4096, 8192, 32768} with near-2^29 moduli,
-     random canonical inputs and key slice, B = 1 and a batch whose last
-     gate tile is partial, every prune, exact and randomized, every T-mode.
-  3. each kernel against its plain version at the main path's shapes, in
-     both of its modes, with its time (steps 0..n-1 in turn, as the main
-     path walks the key), the plain version's time and its bound.
+     L in {2, 3, 4} x m in {512, 1024, 2048, 4096, 8192, 16384, 32768}
+     with near-2^29 moduli, random canonical inputs and key slice, B = 1
+     and a batch whose last gate tile is partial, every prune, exact and
+     randomized, every T-mode.
+  3. each kernel against its plain version at the main paths' shapes
+     (Params(64), Params(512), scheme 2 at k=1), in both of its modes,
+     with its time (steps 0..n-1 in turn, as the main path walks the key),
+     the plain version's time and its bound; then one step of each, bit
+     for bit against plain in both modes, at every other batch a main path
+     launches (mul's 1024, 512 and 256 lanes; the pack's 512 at Params(512)).
   4. main path at Params(64): keygen, encrypt, split, bootstrap_batch on
      4096 gates, decrypt_bit, AND/OR/XOR truth tables, gates/s, and a
      profiler trace of one call (device busy and idle time, each kernel's
@@ -22,9 +26,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
   5. main path at Params(512), full width (576 MiB key): 256 gates, truth
      tables, gates/s, launches == 2n per call, the trace, the twin's time on
      the card for the same batch and its equality with the kernels' output.
-The line before the last is the kernel table as JSON; the last line is
-{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
-of the repository, it exits nonzero and prints no result.
+  6. scheme 2 at the paper's k=1, n=1024, full width and depth (r = 4096,
+     m = 2048, L = 3, RNS q; 576 MiB key made on the card): add_with_carry
+     on 1024 digit pairs (2048 lanes) and mul on 256 pairs, every output
+     digit decrypted against plaintext arithmetic, adds/s and muls/s,
+     launches == 2n per rotation round, a trace of one add_with_carry
+     call, and on 4 pairs the kernels' output of add_with_carry and of mul
+     equal to the twin's in deterministic and randomized mode.
+  7. the rest of scheme 1's API at Params(512): a public key, its
+     ciphertexts through split, bootstrap_batch and decrypt (truth
+     tables), the space-optimal round trip for both key types, and
+     pack_encrypted_bits of 512 bootstrapped bits decrypted from its
+     length-m ciphertext, with its time, and its kernels' output equal to
+     the twin's in deterministic and randomized mode.
+Each phase prints its seconds. The line before the last is the kernel
+table as JSON; the last line is {"ok": true, "device": {...}}. Without a
+CUDA device, or outside a checkout of the repository, it exits nonzero and
+prints no result.
 """
 
 from __future__ import annotations
@@ -119,8 +137,10 @@ def main() -> int:
     from sgfhe_tpu_torch.models import bootstrap as tbs
     from sgfhe_tpu_torch.ops import fused
     from sgfhe_tpu_torch.ops import modmath as mm
+    from sgfhe_tpu_torch.ops import prg
     from sgfhe_tpu_torch.utils import primes
 
+    S2, B2 = T.Scheme2, T.Scheme2Boot
     dev = torch.device("cuda")
     card = smi()
     print(f"[1] card: {card}")
@@ -128,6 +148,13 @@ def main() -> int:
     t0 = time.perf_counter()
     _build.build_all()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
+    phase_t = [time.perf_counter()]
+
+    def phase_done(tag):
+        torch.cuda.synchronize()
+        now = time.perf_counter()
+        print(f"[{tag}] phase took {now - phase_t[0]:.1f} s")
+        phase_t[0] = now
 
     def reset():
         fused.flatten_ntt_fwd.launches = 0
@@ -183,12 +210,12 @@ def main() -> int:
                      f"{int((w != g).sum())} of {w.numel()} words differ")
         print(f"[2] kernel == twin bit for bit: {name}")
     print(f"[2] launches (flatten_ntt_fwd, mac_rotate_ntt_inv): {counts()}")
+    phase_done("2")
 
     # ---- 2b. one step of each kernel at every supported shape ---------------
-    t0 = time.perf_counter()
     n_checks = 0
     for L in (2, 3, 4):
-        for m in (512, 4096, 8192, 32768):
+        for m in (512, 1024, 2048, 4096, 8192, 16384, 32768):
             mods = primes.find_rns_primes(2 * m, 1 << (29 * L - 2), (1 << (29 * L - 1)) - 1, L)
             params = dataclasses.replace(T.Params.create(m // 8), moduli=mods)
             ctx = T.make_context(params, device=dev)
@@ -230,21 +257,34 @@ def main() -> int:
                         n_checks += 1
             print(f"[2b] L={L} m={m}: both kernels == plain bit for bit "
                   f"(B = 1 and {ragged}, every prune and mode)")
-    torch.cuda.synchronize()
-    print(f"[2b] {n_checks} single-step checks in {time.perf_counter() - t0:.1f} s")
+    print(f"[2b] {n_checks} single-step checks")
+    phase_done("2b")
 
     # ---- 3. each kernel against its plain version at main-path shapes -------
     p512 = T.Params.create(512)
     ctx512, sk512, bk512, g512 = keys(p512, 4)
     key_mib = 2 * bk512.hat.numel() * 4 / 2**20
     print(f"[3] Params(512) key with Shoup companions on the card: {key_mib:.0f} MiB")
+    # scheme 2 at the paper's k = 1, n = 1024: context and keys on the card
+    t = time.perf_counter()
+    s2p = S2.Params.create(1)
+    ctx2 = S2.make_context(s2p, device=dev)
+    g2 = torch.Generator().manual_seed(6)
+    sk2 = S2.PrivateKey.create(s2p, g2, device=dev)
+    bk2 = S2.BootstrapKey.create(ctx2, sk2, g2)
+    torch.cuda.synchronize()
+    key_mib = 2 * bk2.hat.numel() * 4 / 2**20
+    print(f"[3] scheme 2 k=1 n=1024: r={s2p.r} m={s2p.m} L={s2p.num_limbs} "
+          f"q_moduli={s2p.q_moduli}; key with Shoup companions made on the card in "
+          f"{time.perf_counter() - t:.1f} s: {key_mib:.0f} MiB")
     table = []
     # (tag, ..., batch, the main path's T-mode, the TPU kernel replaced:
     # _rotate_kernel at Params(64), whose T-term is carried;
-    # _rotate_step_kernel at Params(512))
+    # _rotate_step_kernel at Params(512) and for scheme 2's 2048 lanes)
     shapes = [
         ("n=64", p64, ctx64, bk64, 4096, 2, "sgfhe_tpu/ops/fused.py:542"),
         ("n=512", p512, ctx512, bk512, 256, 0, "sgfhe_tpu/ops/fused.py:604"),
+        ("s2 k=1", s2p, ctx2, bk2, 2 * s2p.n, 0, "sgfhe_tpu/ops/fused.py:604"),
     ]
 
     def add_row(name, replaces, err, ms, pms, nbytes_muls):
@@ -296,6 +336,37 @@ def main() -> int:
                 ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_p), 3)
             name = f"mac_rotate_ntt_inv {'carry' if t_mode else 'w-multiply'} ({tag})"
             add_row(name, replaces, err, ms, pms, mac_cost(B, L, m, L, t_mode))
+    # The launch plans (gate tile, chunks, waves) follow B, so every other
+    # batch a main path launches is held against plain too: mul's rounds of
+    # 4, 2 and 1 lanes a pair on 256 pairs, and pack_encrypted_bits' 512
+    # trivial bootstraps at Params(512).
+    for tag, params, ctx, bk, batches in (("s2 k=1", s2p, ctx2, bk2, (1024, 512, 256)),
+                                          ("n=512", p512, ctx512, bk512, (512,))):
+        L, m = params.num_limbs, params.m
+        for B in batches:
+            ua, a0, b0 = rand_acc(params, B, 7 + B)
+            acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
+            u = ua[:, 1].to(torch.int32).contiguous()
+            for seed2 in (None, SEED2):
+                mode = "randomized" if seed2 else "deterministic"
+                d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 1, seed2)
+                if not torch.equal(fused.flatten_ntt_fwd(ctx, acc, 1, seed2), d_p):
+                    fail(f"{tag} B={B}: flatten_ntt_fwd != plain ({mode})")
+                for t_mode in (0, 2):
+                    carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
+                    carry_p = carry_k.clone() if t_mode else None
+                    out_k = fused.mac_rotate_ntt_inv(ctx, d_p, bk.hat, bk.hat_shoup, 1, u, 0,
+                                                     t_mode, carry_k)
+                    out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_p, bk.hat, bk.hat_shoup, 1, u,
+                                                           0, t_mode, carry_p)
+                    if not (torch.equal(out_k, out_p)
+                            and (not t_mode or torch.equal(carry_k, carry_p))):
+                        fail(f"{tag} B={B}: mac_rotate_ntt_inv t_mode {t_mode} != plain ({mode})")
+            sm = fused._sm_count(0)
+            print(f"[3] {tag} B={B}: both kernels == plain bit for bit at step 1 "
+                  f"(deterministic and randomized, T-modes 0 and 2; plans "
+                  f"{fused.fwd_plan(B, L, m, 0, sm)}, {fused.mac_plan(B, L, m, 0, sm)})")
+    phase_done("3")
 
     # ---- 4/5. the main path --------------------------------------------------
     def truth_tables(sk, out, y1, y2):
@@ -306,30 +377,39 @@ def main() -> int:
             if not (lwe.a.max() < sk.params.r and lwe.a.min() >= 0):
                 fail(f"{gate}: output out of range")
 
-    def drive(tag, params, ctx, bk, sk, lwe1, lwe2, y1, y2, reps):
-        B = lwe1.a.shape[0]
+    def timed(tag, call, reps):
+        """One warm call and `reps` timed ones (host clock, synchronized),
+        with the launch counts set to 0 just before and read just after."""
         reset()
         times = []
-        for i in range(reps + 1):  # the first run warms up
+        for i in range(reps + 1):
             torch.cuda.synchronize()
             t = time.perf_counter()
-            out = T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup, lwe1, lwe2)
+            out = call()
             torch.cuda.synchronize()
             if i:
                 times.append(time.perf_counter() - t)
         launches = counts()
+        if not all(launches):
+            fail(f"[{tag}] a rotation kernel was not launched: {launches}")
+        return out, launches, sorted(times)[len(times) // 2], times
+
+    def drive(tag, params, ctx, bk, sk, lwe1, lwe2, y1, y2, reps):
+        B = lwe1.a.shape[0]
+
+        def call():
+            return T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup, lwe1, lwe2)
+
+        out, launches, med, times = timed(tag, call, reps)
         truth_tables(sk, out, y1, y2)
         want = params.n * (reps + 1)
         if launches != (want, want):
             fail(f"{tag}: launches {launches}, expected 2n per call = {want} each")
-        med = sorted(times)[len(times) // 2]
         print(f"[{tag}] {B} gates, truth tables AND/OR/XOR hold; launches "
               f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {launches} over {reps + 1} calls")
         print(f"[{tag}] {B / med:.1f} gates/s (median of {reps}: "
               f"{[round(t, 4) for t in times]} s) on {card}")
-        per_kernel = trace(tag, lambda: T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup,
-                                                          lwe1, lwe2))
-        return out, launches, per_kernel
+        return out, launches, trace(tag, call)
 
     def trace(tag, call):
         """Device busy time of one traced call, by the profiler's device
@@ -374,6 +454,7 @@ def main() -> int:
     lwe1, lwe2 = T.LWE(e1.a[ii], e1.b[ii]), T.LWE(e2.a[jj], e2.b[jj])
     y1, y2 = m1.to(dev)[ii].bool(), m2.to(dev)[jj].bool()
     _, l64, tr64 = drive("4", p64, ctx64, bk64, sk64, lwe1, lwe2, y1, y2, reps=5)
+    phase_done("4")
 
     # Params(512): every pair (2i, 2i+1) of one 512-bit message -> 256 gates
     msg = torch.randint(0, 2, (p512.n,), generator=g512)
@@ -394,17 +475,143 @@ def main() -> int:
           f"({256 / twin_s:.1f} gates/s); output equal to the kernels' bit for bit")
     print(f"[5] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
 
-    # On the rows of the modes the main path runs: launches, the kernel's
-    # count in its main-path run, and trace_ms, its device ms per launch in
-    # the traced main-path call. The other modes launched 0 times there.
-    main_rows = ("flatten_ntt_fwd (n=64)", "mac_rotate_ntt_inv carry (n=64)",
-                 "flatten_ntt_fwd (n=512)", "mac_rotate_ntt_inv w-multiply (n=512)")
+    phase_done("5")
+
+    # ---- 6. scheme 2 at the paper's k = 1, n = 1024 ---------------------------
+    n2, K2 = s2p.n, 2**s2p.k
+    route = tbs._rotation_route(s2p, dev, 0, False)
+    if route != "wmul":
+        fail(f"[6] scheme 2 k=1 takes route {route}, expected wmul")
+    x = torch.randint(0, K2, (n2,), generator=g2)
+    y = torch.randint(0, K2, (n2,), generator=g2)
+    lx = B2.split_ciphertext(s2p, *S2.encrypt(sk2, g2, x))
+    ly = B2.split_ciphertext(s2p, *S2.encrypt(sk2, g2, y))
+    x, y = x.to(dev), y.to(dev)
+
+    def digits_right(name, lwe, want):
+        got = B2.decrypt_lwe(sk2, lwe)
+        if got.shape != want.shape or not torch.equal(got, want):
+            fail(f"[6] {name}: {int((got != want).sum())} of {want.numel()} digits wrong")
+        noise = int(B2.lwe_phase_noise(sk2, lwe, want).abs().max())
+        if noise >= s2p.Dr // 4:
+            fail(f"[6] {name}: phase noise {noise} >= Dr/4 = {s2p.Dr // 4}")
+        return noise
+
+    (digit, cout), l_add, med, times = timed(
+        "6", lambda: B2.add_with_carry(s2p, ctx2, bk2, lx, ly), 3)
+    z = x + y
+    noise = max(digits_right("add digit", digit, z % K2),
+                digits_right("add carry", cout, z // K2))
+    if l_add != (4 * n2, 4 * n2):
+        fail(f"[6] add_with_carry launches {l_add}, expected 2n per call")
+    print(f"[6] add_with_carry on {n2} digit pairs ({2 * n2} lanes, route {route}): every "
+          f"digit and carry right, max |phase noise| {noise} (Dr = {s2p.Dr}); launches "
+          f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {l_add} over 4 calls, 2n = {2 * n2} "
+          f"a rotation round")
+    print(f"[6] {n2 / med:.1f} adds/s (median of 3: {[round(t, 4) for t in times]} s) "
+          f"on {card}")
+    Bm = 256
+    mx, my = T.LWE(lx.a[:Bm], lx.b[:Bm]), T.LWE(ly.a[:Bm], ly.b[:Bm])
+    (lo, hi), l_mul, med, times = timed("6", lambda: B2.mul(s2p, ctx2, bk2, mx, my), 3)
+    prod = x[:Bm] * y[:Bm]
+    noise = max(digits_right("mul low", lo, prod % K2), digits_right("mul high", hi, prod // K2))
+    if l_mul != (12 * n2, 12 * n2):
+        fail(f"[6] mul launches {l_mul}, expected 3 rounds of 2n per call")
+    print(f"[6] mul on {Bm} pairs (rounds of {4 * Bm}, {2 * Bm} and {Bm} lanes): every low "
+          f"and high digit right, max |phase noise| {noise}; launches = {l_mul} over 4 "
+          f"calls, 2n a round")
+    print(f"[6] {Bm / med:.1f} muls/s (median of 3: {[round(t, 4) for t in times]} s) "
+          f"on {card}")
+    tr_s2 = trace("6", lambda: B2.add_with_carry(s2p, ctx2, bk2, lx, ly))
+    sx, sy = T.LWE(lx.a[:4], lx.b[:4]), T.LWE(ly.a[:4], ly.b[:4])
+    for seed2 in (None, SEED2):
+        t = time.perf_counter()
+        want = B2._add_with_carry(s2p, ctx2, bk2, sx, sy, None, seed2, plain=True)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        got = B2._add_with_carry(s2p, ctx2, bk2, sx, sy, None, seed2)
+        for w, g in zip(want, got):
+            if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
+                fail(f"[6] add_with_carry kernels != twin, randomized={seed2 is not None}")
+        print(f"[6] add_with_carry on 4 pairs, "
+              f"{'randomized (seed words given)' if seed2 else 'deterministic'}: "
+              f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+    # mul's three rounds, each with its own seed-word pair as mul splits them
+    for seeds in ((None,) * 3, tuple(prg.split_words(SEED2, 3))):
+        t = time.perf_counter()
+        want = B2._mul(s2p, ctx2, bk2, sx, sy, seeds, plain=True)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        got = B2._mul(s2p, ctx2, bk2, sx, sy, seeds)
+        for w, g in zip(want, got):
+            if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
+                fail(f"[6] mul kernels != twin, randomized={seeds[0] is not None}")
+        print(f"[6] mul on 4 pairs, "
+              f"{'randomized (split seed words)' if seeds[0] else 'deterministic'}: "
+              f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+    phase_done("6")
+
+    # ---- 7. the rest of scheme 1's API at Params(512) ------------------------
+    pk512 = T.PublicKey.create(ctx512, sk512, g512)
+    msg = torch.randint(0, 2, (p512.n,), generator=g512)
+    bits = T.split_ciphertext(T.encrypt(pk512, ctx512, g512, msg)).lwe
+    lwe1, lwe2 = T.LWE(bits.a[0::2], bits.b[0::2]), T.LWE(bits.a[1::2], bits.b[1::2])
+    y1, y2 = msg.to(dev)[0::2].bool(), msg.to(dev)[1::2].bool()
+    gates = T.bootstrap_batch(p512, ctx512, bk512.hat, bk512.hat_shoup, lwe1, lwe2)
+    truth_tables(sk512, gates, y1, y2)
+    print(f"[7] public key: 512 bits encrypted, split, 256 gates bootstrapped; truth "
+          f"tables AND/OR/XOR hold")
+    for name, key_args in (("private", (sk512,)), ("public", (pk512, ctx512))):
+        opt = T.encrypt_optimal(*key_args, g512, msg)
+        if not torch.equal(T.decrypt(sk512, T.normalize_ciphertext(opt)), msg.to(dev).bool()):
+            fail(f"[7] {name} space-optimal round trip decrypts wrong")
+    print("[7] encrypt_optimal -> normalize_ciphertext -> decrypt right for both key types")
+    # 512 bootstrapped bits: the AND and XOR outputs of the 256 gates
+    g_and, _, g_xor = gates
+    packed_in = T.EncryptedBit(T.LWE(torch.cat([g_and.a, g_xor.a]), torch.cat([g_and.b, g_xor.b])))
+    want = torch.cat([y1 & y2, y1 ^ y2])
+    packed, l_pack, med, times = timed(
+        "7", lambda: T.pack_encrypted_bits(p512, ctx512, bk512, packed_in), 3)
+    if l_pack != (4 * p512.n, 4 * p512.n):
+        fail(f"[7] pack_encrypted_bits launches {l_pack}, expected 2n per call")
+    for mode, ct in (("deterministic", packed), ("randomized", T.pack_encrypted_bits(
+            p512, ctx512, bk512, packed_in, SEED2))):
+        if ct.rlwe.a.shape != (p512.m,) or not torch.equal(T.decrypt(sk512, ct), want):
+            fail(f"[7] pack_encrypted_bits ({mode}): the length-m ciphertext decrypts wrong")
+    print(f"[7] pack_encrypted_bits of 512 bootstrapped bits -> length-{p512.m} Ciphertext, "
+          f"every bit right (deterministic and randomized); launches = {l_pack} over 4 calls")
+    print(f"[7] pack_encrypted_bits: {med:.4f} s (median of 3: {[round(t, 4) for t in times]} "
+          f"s) on {card}")
+    # the same 512 bits through the twin, with the bootstraps' and the pack
+    # stage's seed words given: both mask streams, not just the decryption
+    for seeds in ((None, None), tuple(prg.split_words(SEED2, 2))):
+        t = time.perf_counter()
+        want = tbs.pack_internal(p512, ctx512, bk512.hat, bk512.hat_shoup, packed_in.lwe,
+                                 *seeds, plain=True)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        got = tbs.pack_internal(p512, ctx512, bk512.hat, bk512.hat_shoup, packed_in.lwe, *seeds)
+        if not (torch.equal(want.a, got.a) and torch.equal(want.b, got.b)):
+            fail(f"[7] pack_internal kernels != twin, randomized={seeds[0] is not None}")
+        print(f"[7] pack_internal, {'randomized (split seed words)' if seeds[0] else 'deterministic'}"
+              f": kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+    print(f"[7] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_done("7")
+
+    # On the rows of the modes a main path runs: launches, the kernel's count
+    # in that path's run, calls, the number of calls in the run, and
+    # trace_ms, its device ms per launch in the traced call. The other modes
+    # launched 0 times there.
+    runs = {"n=64": (l64, 6, tr64, "carry"), "n=512": (l512, 3, tr512, "w-multiply"),
+            "s2 k=1": (l_add, 4, tr_s2, "w-multiply")}
     for row in table:
-        counts_, tr = (l64, tr64) if "(n=64)" in row["name"] else (l512, tr512)
+        tag = row["name"][row["name"].index("(") + 1:-1]
+        counts_, calls, tr, mac_mode = runs[tag]
         fwd = row["name"].startswith("flatten")
-        main = row["name"] in main_rows
-        row["launches"] = (counts_[0] if fwd else counts_[1]) if main else 0
         kname = "flatten_ntt_fwd" if fwd else "mac_rotate_ntt_inv"
+        main = row["name"] in (f"{kname} ({tag})", f"{kname} {mac_mode} ({tag})")
+        row["launches"] = (counts_[0] if fwd else counts_[1]) if main else 0
+        row["calls"] = calls if main else 0
         row["trace_ms"] = tr[kname] if main else None
     print(f"[card] {smi()}")
     print(json.dumps({"kernels": table}))

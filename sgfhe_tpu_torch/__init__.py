@@ -1,14 +1,18 @@
 """sgfhe_tpu_torch — the PyTorch and CUDA port of sgfhe_tpu for one NVIDIA
 H100: Gao's gate-bootstrapping scheme 1 (eprint 2018/637) with RNS limbs,
-a balanced mixed-radix gadget and an exact Q->r switch.
+a balanced mixed-radix gadget and an exact Q->r switch, and the k-bit
+scheme 2 (eprint 2019/521) with its functional bootstrap.
 
 It imports torch and numpy, never JAX and nothing of sgfhe_tpu. Entry
 points run on "cuda" unless the caller passes device="cpu". The blind
-rotation runs through hand-written CUDA kernels (csrc/rotate.cu) on the
-card and through their plain PyTorch versions on the CPU.
+rotation of both schemes runs through hand-written CUDA kernels
+(csrc/rotate.cu) on the card and through their plain PyTorch versions on
+the CPU.
 
-This slice ports the scheme-1 gate bootstrap: keys, private-key
-encryption, split, bootstrap, decryption. See ROADMAP.md for what is still
+Ported so far: scheme 1's keys (private, public, bootstrap), private,
+public and space-optimal encryption, split, gate bootstrap, packing and
+decryption; scheme 2 (`Scheme2`: params, keys, encryption; `Scheme2Boot`:
+add_with_carry, apply_lut, refresh, mul). See ROADMAP.md for what is still
 to port.
 """
 
@@ -19,22 +23,33 @@ from .models.scheme1 import (
     RLWE,
     LWE,
     PackedCiphertext,
+    Ciphertext,
     EncryptedBit,
+    PrivateEncryptedCiphertext,
+    PublicEncryptedCiphertext,
     PrivateKey,
+    PublicKey,
     BootstrapKey,
     encrypt,
+    encrypt_public,
+    encrypt_optimal,
+    normalize_ciphertext,
     decrypt,
     decrypt_bit,
     split_ciphertext,
     deterministic_expand,
 )
-from .models.bootstrap import bootstrap, bootstrap_batch
+from .models.bootstrap import bootstrap, bootstrap_batch, pack_encrypted_bits
+from .models import scheme2 as Scheme2  # noqa: F401
+from .models import bootstrap2 as Scheme2Boot  # noqa: F401
 
 __all__ = [
     "Params", "SchemeContext", "make_context",
-    "RLWE", "LWE", "PackedCiphertext", "EncryptedBit",
-    "PrivateKey", "BootstrapKey",
-    "encrypt", "decrypt", "decrypt_bit", "split_ciphertext",
-    "deterministic_expand",
-    "bootstrap", "bootstrap_batch",
+    "RLWE", "LWE", "PackedCiphertext", "Ciphertext", "EncryptedBit",
+    "PrivateEncryptedCiphertext", "PublicEncryptedCiphertext",
+    "PrivateKey", "PublicKey", "BootstrapKey",
+    "encrypt", "encrypt_public", "encrypt_optimal", "normalize_ciphertext",
+    "decrypt", "decrypt_bit", "split_ciphertext", "deterministic_expand",
+    "bootstrap", "bootstrap_batch", "pack_encrypted_bits",
+    "Scheme2", "Scheme2Boot",
 ]

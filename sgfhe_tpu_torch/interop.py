@@ -4,19 +4,24 @@ device, and back.
 
 Arrays come in as uint32 (or any integer type holding values < 2^32) with
 the JAX package's layouts: private key (n,) bits; bootstrap key and its
-Shoup companions (n, 2l, 2, L, m); RLWE/LWE a and b mod r; RNS residues
-(..., L, m). Residues become int64 tensors and the bootstrap key int32
-bit patterns (ops/modmath.py).
+Shoup companions (n, 2l, 2, L, m); public key (n,) or (Lq, n) residues;
+RLWE/LWE a and b mod r; RNS residues (..., L, m). Residues become int64
+tensors and the bootstrap key int32 bit patterns (ops/modmath.py).
+Scheme-2 objects are made when `params` is this package's scheme-2
+`Params` (see `scheme2_params`).
 """
 
 from __future__ import annotations
 
+import dataclasses
+
 import numpy as np
 import torch
 
+from .models import scheme2 as s2
 from .models.params import Params
 from .models.scheme1 import (
-    LWE, RLWE, BootstrapKey, PackedCiphertext, PrivateKey,
+    LWE, RLWE, BootstrapKey, Ciphertext, PackedCiphertext, PrivateKey, PublicKey,
     resolve_device,
 )
 from .ops import modmath as mm
@@ -39,12 +44,29 @@ def to_numpy(t: torch.Tensor) -> np.ndarray:
     return (t.detach().cpu().to(torch.int64) & mm.MASK32).numpy().astype(np.uint32)
 
 
-def private_key(params: Params, key, device=None) -> PrivateKey:
-    return PrivateKey(params, tensor(key, device))
+def scheme2_params(params) -> s2.Params:
+    """Any object with the scheme-2 Params fields (the JAX package's) ->
+    this package's scheme-2 Params."""
+    return s2.Params(**{f.name: getattr(params, f.name) for f in dataclasses.fields(s2.Params)})
 
 
-def bootstrap_key(params: Params, hat, hat_shoup, device=None) -> BootstrapKey:
-    return BootstrapKey(params, bits_tensor(hat, device), bits_tensor(hat_shoup, device))
+def _scheme2(params) -> bool:
+    return isinstance(params, s2.Params)
+
+
+def private_key(params, key, device=None):
+    cls = s2.PrivateKey if _scheme2(params) else PrivateKey
+    return cls(params, tensor(key, device))
+
+
+def bootstrap_key(params, hat, hat_shoup, device=None):
+    cls = s2.BootstrapKey if _scheme2(params) else BootstrapKey
+    return cls(params, bits_tensor(hat, device), bits_tensor(hat_shoup, device))
+
+
+def public_key(params, k0, k1, device=None):
+    cls = s2.PublicKey if _scheme2(params) else PublicKey
+    return cls(params, tensor(k0, device), tensor(k1, device))
 
 
 def lwe(a, b, device=None) -> LWE:
@@ -53,3 +75,8 @@ def lwe(a, b, device=None) -> LWE:
 
 def packed_ciphertext(params: Params, a, b, device=None) -> PackedCiphertext:
     return PackedCiphertext(params, RLWE(tensor(a, device), tensor(b, device)))
+
+
+def ciphertext(params: Params, a, b, device=None) -> Ciphertext:
+    """A packed length-m Ciphertext (pack_encrypted_bits' output)."""
+    return Ciphertext(params, RLWE(tensor(a, device), tensor(b, device)))

@@ -18,6 +18,10 @@ otherwise. `plain=True` forces the twin on any device.
 
 Deterministic by default; pass two Threefry seed words for randomized
 flattening (ops/prg.py).
+
+`pack_encrypted_bits` repacks n bootstrapped bits into one RLWE over
+R_{m,r} (reference src/fhe.jl:632-696): n trivial bootstraps through the
+same rotation, then n shortened external products in plain torch.
 """
 
 from __future__ import annotations
@@ -31,7 +35,7 @@ from ..ops import poly as pol
 from ..ops import prg
 from ..ops import rns as rns_mod
 from .params import Params, prune_error_bound
-from .scheme1 import LWE, EncryptedBit, SchemeContext
+from .scheme1 import LWE, RLWE, Ciphertext, EncryptedBit, SchemeContext
 
 _RESIDENT_KEY_BYTES = 10 * 1024 * 1024
 
@@ -160,3 +164,81 @@ def bootstrap(params, ctx, bkey, enc_bit1: EncryptedBit, enc_bit2: EncryptedBit,
     if enc_bit1.lwe.a.ndim == 1:
         return tuple(EncryptedBit(LWE(r.a[0], r.b[0])) for r in res)
     return tuple(EncryptedBit(r) for r in res)
+
+
+# ---------------------------------------------------------------------------
+# LWE repacking (reference src/fhe.jl:632-696)
+# ---------------------------------------------------------------------------
+
+
+def pack_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
+                  enc_bits: LWE, boot_seed2=None, pack_seed2=None, *,
+                  plain: bool = False) -> RLWE:
+    """n LWE bits (n, n)/(n,) -> one RLWE over R_{m,r} (reference
+    src/fhe.jl:660-696). The n trivial-input bootstraps run as one batch of
+    n gates through the rotation; the n shortened external products are
+    plain torch. boot_seed2 / pack_seed2: None or the two Threefry key
+    words of the bootstraps' and of the pack stage's mask streams, used as
+    given."""
+    n, m, l = params.n, params.m, params.num_digits
+    plan = ctx.plan_Q
+    p = plan.p
+    dev = enc_bits.a.device
+    # trivial LWE encrypting 1: a = 0, b = Dr (src/fhe.jl:670-671)
+    a_triv = torch.zeros((n, n), dtype=torch.int64, device=dev)
+    b_triv = torch.full((n,), params.Dr, dtype=torch.int64, device=dev)
+    (a_q, b_q), _, _ = bootstrap_internal(
+        params, ctx, bkey_hat, bkey_shoup, a_triv, b_triv, enc_bits.a, enc_bits.b,
+        boot_seed2, plain=plain,
+    )
+    # polynomial i collects coefficient i of every gate's LWE (src/fhe.jl:675-678)
+    as_polys = pol.resize(a_q.permute(2, 1, 0), m)  # (n, L, m)
+    b_poly = pol.resize(b_q.t(), m)                 # (L, m)
+
+    # shortened external products against rows l..2l-1 (src/fhe.jl:632-641);
+    # the pack stage's mask stream takes step n, one beyond every rotation
+    # step, with the key-polynomial index as its gate axis
+    if pack_seed2 is None:
+        d = rns_mod.flatten(ctx.rns, as_polys)  # (n, l, L, m)
+    else:
+        d = rns_mod.flatten_random(ctx.rns, as_polys, params.moduli, pack_seed2, n, op=0)
+    d_hat = ntt_mod.ntt_fwd(plan, d)
+    sums = []
+    for c in range(2):
+        acc = None
+        for i in range(l):
+            prod = mm.shoup_mul(d_hat[:, i], mm.u32(bkey_hat[:, l + i, c]),
+                                mm.u32(bkey_shoup[:, l + i, c]), p)  # (n, L, m)
+            acc = prod if acc is None else mm.addmod(acc, prod, p)
+        # the sum over key indices (src/fhe.jl:686-687) in the hat domain
+        sums.append(ntt_mod.ntt_inv(plan, _sum_mod(acc, p)))
+    w1 = mm.negmod(sums[0], p)
+    v1 = mm.submod(b_poly, sums[1], p)
+    return RLWE(rns_mod.rescale_exact(ctx.rns, w1, params.r, params.moduli),
+                rns_mod.rescale_exact(ctx.rns, v1, params.r, params.moduli))
+
+
+def _sum_mod(x, p):
+    """Tree sum over the leading axis, each level reduced (pairwise addmod)."""
+    while x.shape[0] > 1:
+        k = x.shape[0]
+        if k % 2 == 1:
+            x = torch.cat([x, torch.zeros_like(x[:1])])
+            k += 1
+        x = mm.addmod(x[:k // 2], x[k // 2:], p)
+    return x[0]
+
+
+def pack_encrypted_bits(params: Params, ctx: SchemeContext, bkey,
+                        enc_bits: EncryptedBit, seed_words=None,
+                        epoch: "int | None" = None, *, plain: bool = False) -> Ciphertext:
+    """n EncryptedBits -> one Ciphertext over R_{m,r}.
+
+    seed_words: None (deterministic) or two uint32 words; a fresh epoch is
+    folded in per call (ops/prg.fold_epoch) and the folded words are split
+    into the bootstraps' and the pack stage's (ops/prg.split_words)."""
+    seed2 = prg.fold_epoch(seed_words, epoch)
+    boot, pack = (None, None) if seed2 is None else prg.split_words(seed2, 2)
+    rlwe = pack_internal(params, ctx, bkey.hat, bkey.hat_shoup, enc_bits.lwe, boot, pack,
+                         plain=plain)
+    return Ciphertext(params, rlwe)

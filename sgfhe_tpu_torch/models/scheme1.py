@@ -1,13 +1,17 @@
-"""Scheme 1 (Gao eprint 2018/637): context, keys, ciphertext types, private
-encryption and decryption (counterpart of sgfhe_tpu/models/scheme1.py).
+"""Scheme 1 (Gao eprint 2018/637): context, keys (private, public,
+bootstrap), ciphertext types, private, public and space-optimal encryption
+and decryption (counterpart of sgfhe_tpu/models/scheme1.py).
 
 Everything lives on one torch device. Entry points that create tensors
 (`make_context`, `PrivateKey.create`) take `device`; it defaults to "cuda",
 and a host without a card must pass device="cpu" explicitly. Randomness
 comes from an explicit `torch.Generator`; draws are made on the generator's
 device and moved to the key's, so a CPU generator gives the same keys on
-any device. Residues are int64 tensors; the bootstrap key is stored as
-int32 bit patterns (ops/modmath.py).
+any device. Where the JAX package's draws cannot be reproduced (it draws
+from `jax.random`), an internal function takes the draws as given
+(`_pubkey_k1`, `_encrypt_public_draws`, `_gsw_hat`) and equals the JAX
+package bit for bit on its draws. Residues are int64 tensors; the
+bootstrap key is stored as int32 bit patterns (ops/modmath.py).
 """
 
 from __future__ import annotations
@@ -22,6 +26,7 @@ from ..ops import modmath as mm
 from ..ops import ntt as ntt_mod
 from ..ops import poly as pol
 from ..ops import rns as rns_mod
+from ..utils import bits as bits_mod
 from ..utils import prng
 from .params import Params
 
@@ -116,10 +121,38 @@ class PackedCiphertext:
 
 
 @dataclasses.dataclass
+class Ciphertext:
+    """n bits in R_{m,r}^2 from packing (pack_encrypted_bits)."""
+
+    params: Params
+    rlwe: RLWE
+
+
+@dataclasses.dataclass
 class EncryptedBit:
     """One or a batch of single-bit LWE ciphertexts."""
 
     lwe: LWE
+
+
+@dataclasses.dataclass
+class PrivateEncryptedCiphertext:
+    """Space-optimal private encryption: 6 bits a message bit
+    (reference src/fhe.jl:293-301)."""
+
+    params: Params
+    u: torch.Tensor  # (n,) uint8 seed bits
+    v: torch.Tensor  # (5, n) uint8: the top 5 bits of b
+
+
+@dataclasses.dataclass
+class PublicEncryptedCiphertext:
+    """Space-optimal public encryption: 10 + log2(n) bits a message bit
+    (reference src/fhe.jl:375-383)."""
+
+    params: Params
+    a_bits: torch.Tensor  # (t+1, n) uint8
+    b_bits: torch.Tensor  # (6, n) uint8: the top 6 bits of b
 
 
 # ---------------------------------------------------------------------------
@@ -149,6 +182,43 @@ class PrivateKey:
 
 
 @dataclasses.dataclass
+class PublicKey:
+    """(k0, k1 = k0·s + e) over Z_q (reference src/fhe.jl:146-168): (n,)
+    residues when q is a single prime, (Lq, n) residue stacks over q's
+    prime factors when q is RNS (params.q_moduli set)."""
+
+    params: Params
+    k0: torch.Tensor
+    k1: torch.Tensor
+
+    @classmethod
+    def create(cls, ctx: SchemeContext, sk: PrivateKey,
+               generator: torch.Generator) -> "PublicKey":
+        params = sk.params
+        dev = sk.key.device
+        n, mods = params.n, params.q_factors
+        # e_max: the largest integer strictly below Dq / (41 n)
+        dq, rr = divmod(params.Dq, 41 * n)
+        e_max = dq - (1 if rr == 0 else 0)
+        if len(mods) == 1:
+            k0 = _draw(generator, 0, mods[0], (n,), dev)
+            e = _draw(generator, -e_max, e_max + 1, (n,), dev)
+        else:
+            k0 = _uniform_residues(generator, (len(mods), n), mods, dev)
+            e = _draw(generator, -e_max, e_max + 1, (1, n), dev)
+        return cls(params, k0, _pubkey_k1(ctx, sk.key, k0, e))
+
+
+def _pubkey_k1(ctx, s_bits, k0, e):
+    """k1 = k0·s + e over q's factors (ctx.plan_q), from the draws k0
+    ((n,) or (Lq, n) residues) and e (signed, broadcasting against k0)."""
+    plan = ctx.plan_q
+    k0_q = k0.reshape(plan.num_limbs, -1)
+    k1 = ntt_mod.polymul(plan, k0_q, s_bits.expand(k0_q.shape))
+    return mm.addmod(k1, mm.embed_signed(e, plan.p).expand(k0_q.shape), plan.p).reshape(k0.shape)
+
+
+@dataclasses.dataclass
 class BootstrapKey:
     """NTT-domain GSW encryptions of the key bits with Shoup companions.
 
@@ -161,9 +231,8 @@ class BootstrapKey:
     @classmethod
     def create(cls, ctx: SchemeContext, sk: PrivateKey,
                generator: torch.Generator) -> "BootstrapKey":
-        hat = _bkey_hat(sk.params, ctx, sk.key, generator)
-        shoup = _shoup_companion(hat, ctx.plan_Q.p)
-        return cls(sk.params, hat.to(torch.int32), mm.bits32(shoup))
+        """Reference src/fhe.jl:181-201: noise in [-n, n]."""
+        return cls(sk.params, *_bootstrap_key(sk.params, ctx, sk.key, generator, sk.params.n))
 
 
 def _shoup_companion(hat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -171,7 +240,8 @@ def _shoup_companion(hat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     return (hat << 32) // p
 
 
-_KEY_CHUNK = 64  # key indices per NTT batch in _bkey_hat
+#: int64 hat bytes per chunk of key indices in `_bootstrap_key`
+KEY_CHUNK_BYTES = 1 << 28
 
 
 def _uniform_residues(generator, shape, moduli, device):
@@ -181,41 +251,51 @@ def _uniform_residues(generator, shape, moduli, device):
     return torch.stack(cols, dim=-2)
 
 
-def _bkey_hat(params: Params, ctx: SchemeContext, s_bits, generator):
-    """The bootstrap key in the hat domain (reference src/fhe.jl:181-201).
-
-    Gadget terms live on the b-column: row j < l is (a, a·s + e − s_i·w_j·s),
-    row l + j is (a, a·s + e + s_i·w_j) at coefficient 0."""
+def _bootstrap_key(params, ctx, s_bits, generator, noise: int):
+    """The bootstrap key of either scheme, (hat, hat_shoup) int32 holding
+    uint32 values: the GSW rows of `_gsw_hat` with noise in [-noise, noise],
+    built in chunks of key indices of at most KEY_CHUNK_BYTES of int64 hat,
+    so that the device holds the finished int32 key and one chunk's
+    temporaries (scheme 2's key at k = 5 is 16 GiB with its companions)."""
     n, m, L = params.n, params.m, params.num_limbs
+    rows = 2 * params.num_digits
+    dev = ctx.device
+    chunk = max(1, min(n, KEY_CHUNK_BYTES // (rows * 2 * L * m * 8)))
+    s_rns, s_hat = _key_rns(ctx, s_bits, m, L)
+    hat = torch.empty((n, rows, 2, L, m), dtype=torch.int32, device=dev)
+    shoup = torch.empty_like(hat)
+    for i in range(0, n, chunk):
+        c = slice(i, min(n, i + chunk))
+        nc = c.stop - c.start
+        a = _uniform_residues(generator, (nc, rows, L, m), params.moduli, dev)
+        e = _draw(generator, -noise, noise + 1, (nc, rows, 1, m), dev)
+        h = _gsw_hat(params, ctx, s_rns, s_hat, s_bits[c], a, e)
+        hat[c] = h.to(torch.int32)
+        shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+    return hat, shoup
+
+
+def _key_rns(ctx, s_bits, m: int, L: int):
+    """The key extended to length m on every limb, and its NTT."""
+    s_rns = pol.resize(s_bits, m).expand(L, m)
+    return s_rns, ntt_mod.ntt_fwd(ctx.plan_Q, s_rns)
+
+
+def _gsw_hat(params, ctx, s_rns, s_hat, s_chunk, a, e):
+    """GSW encryptions of the key bits s_chunk (nc,) in the hat domain,
+    (nc, 2l, 2, L, m), from their uniform a-columns a (nc, 2l, L, m) and
+    signed noise e (nc, 2l, 1, m). Gadget terms live on the b-column: row
+    j < l is (a, a·s + e − s_i·w_j·s), row l + j is (a, a·s + e + s_i·w_j)
+    at coefficient 0. Scheme 2 builds its key with the same rows."""
     l = params.num_digits
-    rows = 2 * l
     plan = ctx.plan_Q
     p_vec = plan.p
-    dev = ctx.device
-    a = _uniform_residues(generator, (n, rows, L, m), params.moduli, dev)
-    e = _draw(generator, -params.n, params.n + 1, (n, rows, 1, m), dev)
-    e_mod = mm.embed_signed(e, p_vec)
-
-    s_ext = pol.resize(s_bits, m)
-    s_rns = s_ext.expand(L, m)
-    s_hat = ntt_mod.ntt_fwd(plan, s_rns)
-    chunks = [slice(i, i + _KEY_CHUNK) for i in range(0, n, _KEY_CHUNK)]
-    b = torch.empty_like(a)
-    for c in chunks:  # chunks of key indices bound the temporaries
-        a_hat = ntt_mod.ntt_fwd(plan, a[c])
-        b[c] = ntt_mod.ntt_inv(plan, ntt_mod.pointwise_mul(plan, a_hat, s_hat))
-    b = mm.addmod(b, e_mod, p_vec)
-
-    wv = ctx.rns.w_val[..., 0]  # (l, L)
-    add0 = s_bits[:, None, None] * wv[None]  # (n, l, L)
-    term = add0[..., None] * s_rns  # (n, l, L, m), < 2^30
-    b[:, :l] = mm.submod(b[:, :l], term, p_vec)
+    b = ntt_mod.ntt_inv(plan, ntt_mod.pointwise_mul(plan, ntt_mod.ntt_fwd(plan, a), s_hat))
+    b = mm.addmod(b, mm.embed_signed(e, p_vec), p_vec)
+    add0 = s_chunk[:, None, None] * ctx.rns.w_val[..., 0][None]  # (nc, l, L)
+    b[:, :l] = mm.submod(b[:, :l], add0[..., None] * s_rns, p_vec)  # term < 2^30
     b[:, l:, :, 0] = mm.addmod(b[:, l:, :, 0], add0, p_vec[:, 0])
-
-    hat = torch.empty((n, rows, 2, L, m), dtype=torch.int64, device=dev)
-    for c in chunks:
-        hat[c] = ntt_mod.ntt_fwd(plan, torch.stack([a[c], b[c]], dim=2))
-    return hat
+    return ntt_mod.ntt_fwd(plan, torch.stack([a, b], dim=2))
 
 
 # ---------------------------------------------------------------------------
@@ -228,8 +308,8 @@ def deterministic_expand(params: Params, u: torch.Tensor) -> torch.Tensor:
     return prng.prng_expand(u, params.t + 1)
 
 
-def encrypt(sk: PrivateKey, generator: torch.Generator, message) -> PackedCiphertext:
-    """Private-key encryption of n bits (reference src/fhe.jl:310-328)."""
+def _encrypt_private(sk: PrivateKey, generator: torch.Generator, message):
+    """Returns (u, RLWE(a, b)) (reference src/fhe.jl:310-328)."""
     params = sk.params
     dev = sk.key.device
     message = torch.as_tensor(message, device=dev).to(torch.int64)
@@ -241,14 +321,129 @@ def encrypt(sk: PrivateKey, generator: torch.Generator, message) -> PackedCipher
     b = (b + w + message * params.Dr) & params.mask_r
     shift = params.t - 4  # keep only the top 5 bits (src/fhe.jl:325)
     b = (b >> shift) << shift
-    return PackedCiphertext(params, RLWE(a, b))
+    return u, RLWE(a, b)
 
 
-def decrypt(sk: PrivateKey, ct: PackedCiphertext) -> torch.Tensor:
-    """RLWE decryption -> n bool bits (reference src/fhe.jl:471-494)."""
+def encrypt(key_obj, *args) -> PackedCiphertext:
+    """Private- or public-key encryption of n bits, like the reference's
+    `encrypt` (src/fhe.jl:369-372, 459-461):
+
+        encrypt(sk, generator, message)       # PrivateKey
+        encrypt(pk, ctx, generator, message)  # PublicKey
+    """
+    if isinstance(key_obj, PrivateKey):
+        generator, message = args
+        return PackedCiphertext(key_obj.params, _encrypt_private(key_obj, generator, message)[1])
+    if isinstance(key_obj, PublicKey):
+        return encrypt_public(key_obj, *args)
+    raise TypeError(f"encrypt expects a PrivateKey or PublicKey, got {type(key_obj)}")
+
+
+def encrypt_public(pk: PublicKey, ctx: SchemeContext, generator: torch.Generator,
+                   message) -> PackedCiphertext:
+    """Public-key encryption of n bits (reference src/fhe.jl:386-409)."""
+    return PackedCiphertext(pk.params, _encrypt_public(pk, ctx, generator, message))
+
+
+def _encrypt_public(pk: PublicKey, ctx: SchemeContext, generator, message) -> RLWE:
+    params = pk.params
+    dev = pk.k0.device
+    n = params.n
+    w1_max = params.Dq // (41 * n)
+    w2_max = params.Dq // 82
+    u = _draw(generator, -1, 2, (n,), dev)
+    w1 = _draw(generator, -w1_max, w1_max + 1, (n,), dev)
+    w2 = _draw(generator, -w2_max, w2_max + 1, (n,), dev)
+    message = torch.as_tensor(message, device=dev).to(torch.int64)
+    return _encrypt_public_draws(params, ctx, pk.k0, pk.k1, u, w1, w2, message, 6)
+
+
+def _residues(v: int, plan) -> torch.Tensor:
+    """(L, 1) residues of the Python int v modulo the plan's moduli."""
+    return torch.tensor([v % p for p in plan.moduli], device=plan.p.device).reshape(-1, 1)
+
+
+def _encrypt_public_draws(params, ctx, k0, k1, u, w1, w2, message, b_bits: int) -> RLWE:
+    """Public-key encryption of either scheme from its draws: u in
+    {-1, 0, 1}^n, the signed noises w1 and w2, messages (n,) (bits, or
+    scheme 2's digits). a1 = k0·u + w1 and a2 = k1·u + w2 + message·Dq over
+    q, then the exact switch q -> r: a rounds to Z_r, b floors to its top
+    b_bits bits (6 in scheme 1, k + 6 in scheme 2)."""
+    plan = ctx.plan_q
+    p = plan.p
+    shape = (plan.num_limbs, params.n)
+
+    def to_q(x):
+        return mm.embed_signed(x, p).expand(shape)
+
+    u_q = to_q(u)
+    a1 = mm.addmod(ntt_mod.polymul(plan, k0.reshape(shape), u_q), to_q(w1), p)
+    a2 = mm.addmod(ntt_mod.polymul(plan, k1.reshape(shape), u_q), to_q(w2), p)
+    a2 = mm.addmod(a2, mm.mulmod(message, _residues(params.Dq, plan), p), p)
+    shift = params.t + 1 - b_bits
+    a = _switch_q_to_r(ctx, a1, params.r, True)
+    b = _switch_q_to_r(ctx, a2, params.r >> shift, False)
+    return RLWE(a, b << shift)
+
+
+def _switch_q_to_r(ctx, x, new_max: int, round_result: bool) -> torch.Tensor:
+    """Exact modulus switch q -> new_max (a power of two; round or floor)
+    of (Lq, ...) residues over q's primes (ctx.plan_q), the reference's
+    `reduce_modulus` (src/utils.jl:78-127): `modmath.rescale` for a single
+    prime, `rns.rescale_exact` for an RNS q."""
+    moduli = ctx.plan_q.moduli
+    if len(moduli) == 1:
+        return mm.rescale(new_max, x[0], moduli[0], round_result)
+    return rns_mod.rescale_exact(ctx.rns_q, x, new_max, moduli, round_result)
+
+
+def encrypt_optimal(key_obj, *args):
+    """Space-optimal encryption (reference src/fhe.jl:339-345, 420-435):
+
+        encrypt_optimal(sk, generator, message)       -> PrivateEncryptedCiphertext
+        encrypt_optimal(pk, ctx, generator, message)  -> PublicEncryptedCiphertext
+    """
+    if isinstance(key_obj, PrivateKey):
+        params = key_obj.params
+        u, rlwe = _encrypt_private(key_obj, *args)
+        v = bits_mod.unpackbits(rlwe.b >> (params.t - 4), 5)
+        return PrivateEncryptedCiphertext(params, u.to(torch.uint8), v)
+    if isinstance(key_obj, PublicKey):
+        params = key_obj.params
+        rlwe = _encrypt_public(key_obj, *args)
+        return PublicEncryptedCiphertext(
+            params, bits_mod.unpackbits(rlwe.a, params.t + 1),
+            bits_mod.unpackbits(rlwe.b >> (params.t - 5), 6),
+        )
+    raise TypeError(type(key_obj))
+
+
+def normalize_ciphertext(ct) -> PackedCiphertext:
+    """Space-optimal -> PackedCiphertext (reference src/fhe.jl:354-359,
+    444-449)."""
+    params = ct.params
+    if isinstance(ct, PrivateEncryptedCiphertext):
+        a = deterministic_expand(params, ct.u.to(torch.int64))
+        b = bits_mod.packbits(ct.v) << (params.t - 4)
+        return PackedCiphertext(params, RLWE(a, b))
+    if isinstance(ct, PublicEncryptedCiphertext):
+        a = bits_mod.packbits(ct.a_bits)
+        b = bits_mod.packbits(ct.b_bits) << (params.t - 5)
+        return PackedCiphertext(params, RLWE(a, b))
+    raise TypeError(type(ct))
+
+
+def decrypt(sk: PrivateKey, ct) -> torch.Tensor:
+    """RLWE decryption -> n bool bits (reference src/fhe.jl:471-494). A
+    packed `Ciphertext` lives on the length-m ring, whose helper primes are
+    Q's (2m | p-1); a PackedCiphertext on the length-n ring uses q's."""
     params = sk.params
     mask = params.mask_r
-    sa = pol.negacyclic_mul_bits(ct.rlwe.a, sk.key, mask, params.q_factors)
+    if isinstance(ct, Ciphertext):
+        s = pol.resize(sk.key, params.m)
+        sa = pol.negacyclic_mul_bits(ct.rlwe.a, s, mask, params.moduli)
+    else:
+        sa = pol.negacyclic_mul_bits(ct.rlwe.a, sk.key, mask, params.q_factors)
     b1 = ((ct.rlwe.b - sa) & mask)[..., :params.n]
     snapped = (b1 + params.Dr // 2) & mask
     return (snapped // params.Dr).bool()

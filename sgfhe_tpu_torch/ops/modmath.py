@@ -2,9 +2,9 @@
 
 Counterpart of sgfhe_tpu/ops/modmath.py. PyTorch on the CPU has no uint32
 add, shift or compare, so every plain function here computes in int64 on
-values in [0, 2^32): a product of two such values below 2^30 stays below
-2^60, and `mulhi` splits one operand into 16-bit halves so that no partial
-product passes 2^48. Results equal the JAX package's uint32 results bit for
+values in [0, 2^32): a product of a uint32 value and a residue below 2^30
+stays below 2^62, and `mulhilo` splits one operand into 16-bit halves so
+that no partial product passes 2^48. Results equal the JAX package's uint32 results bit for
 bit wherever those are canonical (< p).
 
 Storage convention shared with the CUDA kernels: large tables (the
@@ -44,26 +44,23 @@ def mulhilo(a, b):
     return (p2 >> 16) + (mid >> 32), mid & MASK32
 
 
-def mulhi(a, b):
-    """High 32 bits of the 64-bit product of uint32 values a and b."""
-    return mulhilo(a, b)[0]
+# For canonical operands (< p) a remainder equals the JAX package's
+# conditional subtract, in two tensor ops instead of four.
 
 
 def addmod(a, b, p):
     """(a + b) mod p for a, b < p."""
-    s = a + b
-    return torch.where(s >= p, s - p, s)
+    return torch.remainder(a + b, p)
 
 
 def submod(a, b, p):
     """(a - b) mod p for a, b < p."""
-    d = a - b
-    return torch.where(d < 0, d + p, d)
+    return torch.remainder(a - b, p)
 
 
 def negmod(a, p):
     """(-a) mod p for a < p."""
-    return torch.where(a == 0, a, p - a)
+    return torch.remainder(-a, p)
 
 
 def mod_u32(x, p):
@@ -71,17 +68,13 @@ def mod_u32(x, p):
     return torch.remainder(x, p)
 
 
-def shoup_mul_lazy(a, w, w_shoup, p):
-    """Shoup multiply without the final subtract: a value congruent to
-    a*w mod p in [0, 2p), for any uint32 a and w < p < 2^31."""
-    q = mulhi(a, w_shoup)
-    return (a * w - q * p) & MASK32
-
-
 def shoup_mul(a, w, w_shoup, p):
-    """a * w mod p with w_shoup = floor(w * 2^32 / p); canonical output."""
-    r = shoup_mul_lazy(a, w, w_shoup, p)
-    return torch.where(r >= p, r - p, r)
+    """a * w mod p, canonical, for any uint32 a and w < p < 2^30: the value
+    Shoup's multiply by w with w_shoup = floor(w * 2^32 / p) returns (the
+    kernels compute it so), here one exact int64 product and remainder
+    (a * w < 2^62) instead of an emulated multiply-high. w_shoup is unused;
+    it keeps the signature of the kernels and of the JAX package."""
+    return torch.remainder(a * w, p)
 
 
 def mulmod(a, b, p):
@@ -92,6 +85,25 @@ def mulmod(a, b, p):
 def embed_signed(x, p):
     """Residue of a signed integer tensor mod p (any sign, any p)."""
     return torch.remainder(x.to(torch.int64), p)
+
+
+def rescale(new_max: int, x, old_max: int, round_result: bool):
+    """floor or round(x * new_max / old_max) for x < old_max, rounding up at
+    exactly one half, with a rounded quotient of new_max wrapping to 0: the
+    reference's single-prime modulus switch (src/utils.jl:78-92), exact in
+    int64 for any single modulus (the JAX package needs `rns.rescale_wide`
+    past q = 2^28; here that is this same function)."""
+    new_max = int(new_max)
+    old_max = int(old_max)
+    assert new_max * old_max < (1 << 62), "rescale: int64 range"
+    prod = x * new_max
+    q = torch.div(prod, old_max, rounding_mode="floor")
+    r = prod - q * old_max
+    if round_result:
+        half = old_max // 2 + old_max % 2
+        q = torch.where(r >= half, q + 1, q)
+        q = torch.where(q == new_max, torch.zeros_like(q), q)
+    return q
 
 
 # ---------------------------------------------------------------------------

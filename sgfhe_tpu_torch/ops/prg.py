@@ -16,10 +16,12 @@ kernel:
               2*pair + 1)
 
 Across calls, `fold_epoch` derives a fresh key per public call so that the
-same seed words never replay a stream. The JAX package folds with
-`jax.random.fold_in`; this package defines its own fold on the same
-cipher (see `fold_epoch`), so the internal entries, which take the words
-as given, are the ones that agree with the JAX package bit for bit.
+same seed words never replay a stream; within a call, `split_words`
+derives disjoint keys for its stages. The JAX package folds with
+`jax.random.fold_in` and splits with `jax.random.split`; this package
+defines its own fold and split on the same cipher, so the internal
+entries, which take the words as given, are the ones that agree with the
+JAX package bit for bit.
 """
 
 from __future__ import annotations
@@ -38,6 +40,8 @@ MASK_ROUNDS = 20
 #: ctr1 word of `fold_epoch`: "EPOC" in ASCII, outside the mask stream's
 #: (step, op, pair) range for every supported size.
 _EPOCH_DOMAIN = 0x45504F43
+#: ctr1 word of `split_words`: "SPLT" in ASCII.
+_SPLIT_DOMAIN = 0x53504C54
 
 
 def _rotl(x, r: int):
@@ -74,6 +78,17 @@ def fold_epoch(seed_words, epoch: "int | None" = None):
         epoch = next(_EPOCH)
     lo, hi = (int(w) & MASK32 for w in seed_words)
     return threefry2x32(lo, hi, int(epoch) & MASK32, _EPOCH_DOMAIN)
+
+
+def split_words(seed2, count: int) -> list:
+    """`count` seed-word pairs for disjoint mask streams within one call
+    (the pack stage and its bootstraps; the rounds of a scheme-2 `mul`):
+    pair i = Threefry-2x32 under key seed2 of the counter (i, "SPLT"). The
+    JAX package splits its key with `jax.random.split` instead, so the
+    internal entries, which take the pairs as given, are the ones that
+    agree with it bit for bit."""
+    lo, hi = (int(w) & MASK32 for w in seed2)
+    return [threefry2x32(lo, hi, i, _SPLIT_DOMAIN) for i in range(count)]
 
 
 def mask_stream_c1(step: int, op: int, pair: int, num_pairs: int) -> int:

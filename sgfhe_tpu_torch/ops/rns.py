@@ -328,3 +328,14 @@ def rescale_exact(
     for i in range(1, 2 * K + 1):
         q = q + _mll_ge_const(acc, i * C).to(torch.int64)
     return q & (new_max - 1)
+
+
+def rescale_wide(new_max: int, x: torch.Tensor, old_max: int,
+                 round_result: bool) -> torch.Tensor:
+    """EXACT floor/round(x * new_max / old_max) mod new_max for one modulus
+    old_max < 2^31 and power-of-two new_max: the single-prime case of
+    `rescale_exact`. The JAX package needs it for q beyond its uint32
+    `modmath.rescale`; in int64 that function covers every single modulus,
+    so this is it under the JAX package's name."""
+    assert new_max & (new_max - 1) == 0, "new_max must be a power of two"
+    return mm.rescale(new_max, x, old_max, round_result)

@@ -91,7 +91,8 @@ def _ragged_batch(L, m, prune):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("L,m", [(3, 4096), (2, 8192), (3, 8192), (4, 4096)])
+@pytest.mark.parametrize("L,m", [(3, 4096), (2, 8192), (3, 8192), (4, 4096),
+                                 (2, 1024), (3, 2048), (4, 16384)])
 @pytest.mark.parametrize("ragged", [False, True])
 def test_step_kernels_equal_plain_on_card(L, m, ragged):
     """One step of each kernel against its plain version on random
@@ -131,3 +132,34 @@ def test_step_kernels_equal_plain_on_card(L, m, ragged):
             assert torch.equal(got, exp), (prune, t_mode)
             if t_mode:
                 assert torch.equal(carry_k, carry_p), (prune, t_mode)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("k", [1, 2])
+def test_scheme2_add_with_carry_on_card_equals_twin(k):
+    """Scheme 2 at the toy n = 64 with port-made keys: the k = 1 key (4
+    MiB) takes the carried T-term, the k = 2 key (18 MiB) w-multiplies;
+    the kernels' output equals the twin's in deterministic and randomized
+    mode and decrypts right."""
+    dev = _card()
+    S2, B2 = T.Scheme2, T.Scheme2Boot
+    params = S2.Params.create(k, 64)
+    ctx = S2.make_context(params, device=dev)
+    g = torch.Generator().manual_seed(10 + k)
+    sk = S2.PrivateKey.create(params, g, device=dev)
+    bk = S2.BootstrapKey.create(ctx, sk, g)
+    assert tbs._rotation_route(params, dev, 0, False) == ("carry" if k == 1 else "wmul")
+    x = torch.randint(0, 2**k, (params.n,), generator=g)
+    y = torch.randint(0, 2**k, (params.n,), generator=g)
+    lx = B2.split_ciphertext(params, *S2.encrypt(sk, g, x))
+    ly = B2.split_ciphertext(params, *S2.encrypt(sk, g, y))
+    z = (x + y).to(dev)
+    for seed2 in (None, (0x12345678, 0x9ABCDEF0)):
+        before = tfused.flatten_ntt_fwd.launches
+        got = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2)
+        assert tfused.flatten_ntt_fwd.launches == before + params.n
+        want = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2, plain=True)
+        for w, gt in zip(want, got):
+            assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
+        assert torch.equal(B2.decrypt_lwe(sk, got[0]), z % 2**k)
+        assert torch.equal(B2.decrypt_lwe(sk, got[1]), z // 2**k)
