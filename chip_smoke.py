@@ -39,6 +39,26 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      pack_encrypted_bits of 512 bootstrapped bits decrypted from its
      length-m ciphertext, with its time, and its kernels' output equal to
      the twin's in deterministic and randomized mode.
+  8. the boolean-circuit layer at Params(512): ripple_adder(16) and
+     comparator(16) on 64 instances through circuit.evaluate, every output
+     bit against evaluate_plain (deterministic and randomized), launches
+     == 2n a level, seconds an evaluation and additions/s, the noise report
+     of the adder's outputs; one step of each kernel == plain at every
+     level batch; ripple_adder(8) at Params(64) through the kernels equal
+     to plain, deterministic and with each level's seed words given.
+  9. wide integers at scheme 2's k=1, n=1024 (the phase-6 key), W = 3
+     digits, 64 numbers: add_wide, sub_wide, mul_wide and min_max_wide
+     timed, select_wide, eq_wide and sort_wide (N = 4), randomized
+     sub_wide and min_max_wide, every value against numpy; one step of each
+     kernel == plain at every batch these ops launch; min_max_wide (n=1024)
+     and mul_wide (the toy n=64) at W = 2, B = 2 through the kernels equal
+     to plain with pinned seed words.
+  10. scheme 2 at k=2 and k=4, n=1024 (m = 4096 and 16384, L = 3 and 4):
+     each key made on the card after a free-memory check, add_with_carry
+     on 1024 and 256 pairs (adds/s, every digit, max |phase noise|, a
+     trace), add_wide of 64 two-digit numbers, each kernel timed against
+     plain and its bound at the shape, and the -Xptxas -v line of the
+     L = 4 randomized forward kernel.
 Each phase prints its seconds. The line before the last is the kernel
 table as JSON; the last line is {"ok": true, "device": {...}}. Without a
 CUDA device, or outside a checkout of the repository, it exits nonzero and
@@ -121,6 +141,18 @@ def mac_cost(B, L, m, lk, t_mode):
     return nbytes, muls * SHOUP_MULS
 
 
+def ptxas_entry(text: str, kernel: str) -> str:
+    """The `-Xptxas -v` lines of the entry functions whose mangled name
+    holds `kernel`, one string."""
+    out, keep = [], False
+    for line in text.splitlines():
+        if "Compiling entry function" in line:
+            keep = kernel in line
+        if keep:
+            out.append(line.replace("ptxas info    :", "").strip())
+    return " | ".join(out) or f"no ptxas lines for {kernel}"
+
+
 def main() -> int:
     import numpy as np
     import torch
@@ -134,6 +166,10 @@ def main() -> int:
     sys.path.insert(0, str(ROOT))
     import sgfhe_tpu_torch as T
     from sgfhe_tpu_torch import _build
+    from sgfhe_tpu_torch import circuit as C
+    from sgfhe_tpu_torch.debug import noise as noise_dbg
+    from sgfhe_tpu_torch.models import wideint as WI
+    from sgfhe_tpu_torch.models.scheme1 import KEY_CHUNK_BYTES
     from sgfhe_tpu_torch.models import bootstrap as tbs
     from sgfhe_tpu_torch.ops import fused
     from sgfhe_tpu_torch.ops import modmath as mm
@@ -146,7 +182,21 @@ def main() -> int:
     print(f"[1] card: {card}")
     print(f"[1] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
-    _build.build_all()
+    # registers, stack frames and spills of every kernel instance, from a
+    # second nvcc run beside the build (phase 10 prints the L = 4 lines)
+    _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    ptxas = subprocess.Popen(
+        [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+         "-cubin", "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / "ptxas-report.cubin"),
+         str(_build.CSRC / "rotate.cu")],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    try:
+        _build.build_all()
+        ptxas_text = ptxas.communicate(timeout=600)[0]
+    finally:
+        if ptxas.poll() is None:
+            ptxas.kill()
+            ptxas.communicate()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
     phase_t = [time.perf_counter()]
 
@@ -287,22 +337,25 @@ def main() -> int:
         ("s2 k=1", s2p, ctx2, bk2, 2 * s2p.n, 0, "sgfhe_tpu/ops/fused.py:604"),
     ]
 
-    def add_row(name, replaces, err, ms, pms, nbytes_muls):
+    def add_row(phase, name, replaces, err, ms, pms, nbytes_muls):
         bms, by = bound(*nbytes_muls)
         table.append(dict(
             name=name, route="cuda", source="sgfhe_tpu_torch/csrc/rotate.cu",
             replaces=replaces, launches=0, max_abs_err=err, ms=ms,
             plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
         ))
-        print(f"[3] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), plain "
+        print(f"[{phase}] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), plain "
               f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}")
 
-    for tag, params, ctx, bk, B, main_t, replaces in shapes:
+    def time_kernels(tag, params, ctx, bk, B, main_t, replaces, phase="3"):
+        """Each kernel in both of its modes at one main path's shape: == plain,
+        ms per launch (steps 0..n-1 in turn), plain ms, bound; one table row
+        each."""
         L, m, n = params.num_limbs, params.m, params.n
         ua, a0, b0 = rand_acc(params, B, 5)
         acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
         u = ua[:, 0].to(torch.int32).contiguous()
-        print(f"[3] {tag}: B={B}, plans {fused.fwd_plan(B, L, m, 0, fused._sm_count(0))}, "
+        print(f"[{phase}] {tag}: B={B}, plans {fused.fwd_plan(B, L, m, 0, fused._sm_count(0))}, "
               f"{fused.mac_plan(B, L, m, 0, fused._sm_count(0))}")
         d_k = None
         for seed2 in (None, SEED2):
@@ -316,7 +369,7 @@ def main() -> int:
             ms = cuda_ms(lambda i: fused.flatten_ntt_fwd(ctx, acc, i % n, seed2), n)
             pms = cuda_ms(lambda i: fused.flatten_ntt_fwd_plain(ctx, acc, i % n, seed2), 3)
             name = f"flatten_ntt_fwd{' randomized' if seed2 else ''} ({tag})"
-            add_row(name, replaces, err, ms, pms, fwd_cost(B, L, m, L, seed2 is not None))
+            add_row(phase, name, replaces, err, ms, pms, fwd_cost(B, L, m, L, seed2 is not None))
         for t_mode in (main_t, 2 - main_t):
             carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
             carry_p = carry_k.clone() if t_mode else None
@@ -335,13 +388,14 @@ def main() -> int:
             pms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv_plain(
                 ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_p), 3)
             name = f"mac_rotate_ntt_inv {'carry' if t_mode else 'w-multiply'} ({tag})"
-            add_row(name, replaces, err, ms, pms, mac_cost(B, L, m, L, t_mode))
-    # The launch plans (gate tile, chunks, waves) follow B, so every other
-    # batch a main path launches is held against plain too: mul's rounds of
-    # 4, 2 and 1 lanes a pair on 256 pairs, and pack_encrypted_bits' 512
-    # trivial bootstraps at Params(512).
-    for tag, params, ctx, bk, batches in (("s2 k=1", s2p, ctx2, bk2, (1024, 512, 256)),
-                                          ("n=512", p512, ctx512, bk512, (512,))):
+            add_row(phase, name, replaces, err, ms, pms, mac_cost(B, L, m, L, t_mode))
+
+    for shape in shapes:
+        time_kernels(*shape)
+
+    def check_steps(phase, tag, params, ctx, bk, batches):
+        """One step of each kernel, bit for bit against plain, in both modes
+        and T-modes 0 and 2, at each batch in `batches`."""
         L, m = params.num_limbs, params.m
         for B in batches:
             ua, a0, b0 = rand_acc(params, B, 7 + B)
@@ -363,9 +417,16 @@ def main() -> int:
                             and (not t_mode or torch.equal(carry_k, carry_p))):
                         fail(f"{tag} B={B}: mac_rotate_ntt_inv t_mode {t_mode} != plain ({mode})")
             sm = fused._sm_count(0)
-            print(f"[3] {tag} B={B}: both kernels == plain bit for bit at step 1 "
+            print(f"[{phase}] {tag} B={B}: both kernels == plain bit for bit at step 1 "
                   f"(deterministic and randomized, T-modes 0 and 2; plans "
                   f"{fused.fwd_plan(B, L, m, 0, sm)}, {fused.mac_plan(B, L, m, 0, sm)})")
+
+    # The launch plans (gate tile, chunks, waves) follow B, so every other
+    # batch a main path launches is held against plain too: mul's rounds of
+    # 4, 2 and 1 lanes a pair on 256 pairs, and pack_encrypted_bits' 512
+    # trivial bootstraps at Params(512).
+    check_steps("3", "s2 k=1", s2p, ctx2, bk2, (1024, 512, 256))
+    check_steps("3", "n=512", p512, ctx512, bk512, (512,))
     phase_done("3")
 
     # ---- 4/5. the main path --------------------------------------------------
@@ -488,20 +549,23 @@ def main() -> int:
     ly = B2.split_ciphertext(s2p, *S2.encrypt(sk2, g2, y))
     x, y = x.to(dev), y.to(dev)
 
-    def digits_right(name, lwe, want):
-        got = B2.decrypt_lwe(sk2, lwe)
+    def digits_noise(tag, sk, lwe, want):
+        """Decrypt a digit batch against `want`; its max |phase noise|."""
+        params = sk.params
+        got = B2.decrypt_lwe(sk, lwe)
+        want = torch.as_tensor(want, device=dev)
         if got.shape != want.shape or not torch.equal(got, want):
-            fail(f"[6] {name}: {int((got != want).sum())} of {want.numel()} digits wrong")
-        noise = int(B2.lwe_phase_noise(sk2, lwe, want).abs().max())
-        if noise >= s2p.Dr // 4:
-            fail(f"[6] {name}: phase noise {noise} >= Dr/4 = {s2p.Dr // 4}")
-        return noise
+            fail(f"[{tag}] {int((got != want).sum())} of {want.numel()} digits wrong")
+        noise_ = int(B2.lwe_phase_noise(sk, lwe, want).abs().max())
+        if noise_ >= params.Dr // 4:
+            fail(f"[{tag}] phase noise {noise_} >= Dr/4 = {params.Dr // 4}")
+        return noise_
 
     (digit, cout), l_add, med, times = timed(
         "6", lambda: B2.add_with_carry(s2p, ctx2, bk2, lx, ly), 3)
     z = x + y
-    noise = max(digits_right("add digit", digit, z % K2),
-                digits_right("add carry", cout, z // K2))
+    noise = max(digits_noise("6 add digit", sk2, digit, z % K2),
+                digits_noise("6 add carry", sk2, cout, z // K2))
     if l_add != (4 * n2, 4 * n2):
         fail(f"[6] add_with_carry launches {l_add}, expected 2n per call")
     print(f"[6] add_with_carry on {n2} digit pairs ({2 * n2} lanes, route {route}): every "
@@ -514,7 +578,8 @@ def main() -> int:
     mx, my = T.LWE(lx.a[:Bm], lx.b[:Bm]), T.LWE(ly.a[:Bm], ly.b[:Bm])
     (lo, hi), l_mul, med, times = timed("6", lambda: B2.mul(s2p, ctx2, bk2, mx, my), 3)
     prod = x[:Bm] * y[:Bm]
-    noise = max(digits_right("mul low", lo, prod % K2), digits_right("mul high", hi, prod // K2))
+    noise = max(digits_noise("6 mul low", sk2, lo, prod % K2),
+                digits_noise("6 mul high", sk2, hi, prod // K2))
     if l_mul != (12 * n2, 12 * n2):
         fail(f"[6] mul launches {l_mul}, expected 3 rounds of 2n per call")
     print(f"[6] mul on {Bm} pairs (rounds of {4 * Bm}, {2 * Bm} and {Bm} lanes): every low "
@@ -598,12 +663,249 @@ def main() -> int:
     print(f"[7] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase_done("7")
 
+    # ---- 8. the boolean-circuit layer at Params(512) --------------------------
+    def encrypt_bits(params, sk, g, bits):
+        """(count, B) bits -> `count` EncryptedBit batches of B; n bits an
+        encryption."""
+        flat = bits.reshape(-1)
+        parts = []
+        for i in range(0, flat.numel(), params.n):
+            chunk = flat[i:i + params.n]
+            msg = torch.zeros(params.n, dtype=torch.int64)
+            msg[:chunk.numel()] = chunk
+            e = T.split_ciphertext(T.encrypt(sk, g, msg)).lwe
+            parts.append((e.a[:chunk.numel()], e.b[:chunk.numel()]))
+        a, b = (torch.cat(x) for x in zip(*parts))
+        B = bits.shape[1]
+        return [T.EncryptedBit(T.LWE(a[i * B:(i + 1) * B], b[i * B:(i + 1) * B]))
+                for i in range(bits.shape[0])]
+
+    def circuit_right(tag, sk, circ, bits, outs):
+        """Every output bit of every instance against evaluate_plain."""
+        want = torch.tensor([C.evaluate_plain(circ, bits[:, j].tolist())
+                             for j in range(bits.shape[1])]).t().to(dev)
+        for i, o in enumerate(outs):
+            got = T.decrypt_bit(sk, o).long()
+            if got.shape != want[i].shape or not torch.equal(got, want[i]):
+                fail(f"[8] {tag}: output {i}: {int((got != want[i]).sum())} wrong instances")
+        return want
+
+    def level_batches(circ, B):
+        """The padded batch of every level of `circ` on B instances."""
+        return sorted({1 << (len(lv) * B - 1).bit_length() for lv in circ.schedule() if lv})
+
+    Bc = 64
+    batches8 = set()
+    for name, circ, unit in (("ripple_adder(16)", C.ripple_adder(16), "additions"),
+                             ("comparator(16)", C.comparator(16), "comparisons")):
+        levels = sum(1 for lv in circ.schedule() if lv)
+        bits = torch.randint(0, 2, (circ.num_inputs, Bc), generator=g512)
+        ins = encrypt_bits(p512, sk512, g512, bits)
+        outs, launches, med, times = timed(
+            "8", lambda: C.evaluate(circ, p512, ctx512, bk512, ins), 3)
+        want = circuit_right(name, sk512, circ, bits, outs)
+        if launches != (4 * levels * p512.n,) * 2:
+            fail(f"[8] {name}: launches {launches}, expected 2n a level")
+        circuit_right(name + " randomized", sk512, circ, bits,
+                      C.evaluate(circ, p512, ctx512, bk512, ins, SEED2))
+        batches8.update(level_batches(circ, Bc))
+        print(f"[8] {name} on {Bc} instances: {levels} levels, {circ.num_bootstraps} "
+              f"bootstraps an instance, every output bit right (deterministic and "
+              f"randomized); launches {launches} over 4 evaluations, {2 * p512.n} a level "
+              f"({2 * levels * p512.n} an evaluation)")
+        print(f"[8] {name}: {med:.4f} s an evaluation (median of 3: "
+              f"{[round(t, 4) for t in times]} s), {Bc / med:.1f} {unit}/s on {card}")
+        if unit == "additions":
+            err = noise_dbg.noise_budget_report(sk512, T.EncryptedBit(T.LWE(
+                torch.cat([o.lwe.a for o in outs]), torch.cat([o.lwe.b for o in outs]))),
+                want.reshape(-1))
+            if not err["ok"]:
+                fail(f"[8] {name}: output noise beyond Dr/2: {err}")
+            print(f"[8] noise of the adder's {len(outs) * Bc} output bits: max |error| "
+                  f"{err['max_abs']}, mean {err['mean_abs']:.2f}, against Dr/2 = "
+                  f"{err['boundary']}: {err['headroom_bits']:.2f} bits of headroom")
+            # 30 of the adder's 31 levels are one pair: one such level traced
+            print(f"[8] a one-pair level ({Bc} lanes), traced:")
+            trace("8", lambda: T.bootstrap_batch(p512, ctx512, bk512.hat, bk512.hat_shoup,
+                                                 ins[0].lwe, ins[len(ins) // 2].lwe))
+    check_steps("8", "n=512", p512, ctx512, bk512, sorted(batches8 - {256, 512}))
+    # at Params(64) (the carried T-term): the kernels' evaluation == plain's
+    circ = C.ripple_adder(8)
+    bits = torch.randint(0, 2, (circ.num_inputs, 4), generator=g64)
+    ins = encrypt_bits(p64, sk64, g64, bits)
+    levels = len(circ.schedule())
+    for seeds in (None, prg.split_words(SEED2, levels)):
+        t = time.perf_counter()
+        want = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds, plain=True)
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        got = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds)
+        for w, g in zip(want, got):
+            if not (torch.equal(w.lwe.a, g.lwe.a) and torch.equal(w.lwe.b, g.lwe.b)):
+                fail(f"[8] ripple_adder(8) kernels != plain, randomized={seeds is not None}")
+        circuit_right("ripple_adder(8)", sk64, circ, bits, got)
+        print(f"[8] Params(64) ripple_adder(8) on 4 instances, "
+              f"{'randomized (seed words given per level)' if seeds else 'deterministic'}: "
+              f"kernels' output == plain's bit for bit, every bit right (plain {twin_s:.2f} s)")
+    phase_done("8")
+
+    # ---- 9. wide integers at scheme 2's k = 1, n = 1024 ------------------------
+    def wide_right(name, sk, digits, want):
+        """Every digit of a wide result against numpy; max |phase noise|."""
+        k = sk.params.k
+        if not np.array_equal(WI.decrypt_wide(sk, digits), want):
+            fail(f"[9] {name}: wrong values")
+        return max(digits_noise(f"9 {name}", sk, d, (want >> (k * j)) & (2**k - 1))
+                   for j, d in enumerate(digits))
+
+    W9, B9 = 3, 64
+    top = 2 ** (s2p.k * W9)
+    rng = np.random.default_rng(9)
+    xv, yv = rng.integers(0, top, B9), rng.integers(0, top, B9)
+    yv[0] = xv[0]
+    xv[1], yv[1], xv[2], yv[2] = 0, top - 1, top - 1, 0
+    xs, ys = WI.encrypt_wide(sk2, g2, xv, W9), WI.encrypt_wide(sk2, g2, yv, W9)
+    ge_v = (xv >= yv).astype(np.int64)
+    mul_rot = 3 + WI._mul_wide_adds(W9)
+    rates = {}
+    # (name, call, rotations, the output as wide numbers, their values)
+    for name, call, rotations, numbers, want in (
+            ("add_wide", lambda: WI.add_wide(s2p, ctx2, bk2, xs, ys), W9, lambda o: [o],
+             [xv + yv]),
+            ("sub_wide", lambda: WI.sub_wide(s2p, ctx2, bk2, xs, ys), W9,
+             lambda o: [o[0], [o[1]]], [(xv - yv) % top, ge_v]),
+            ("mul_wide", lambda: WI.mul_wide(s2p, ctx2, bk2, xs, ys), mul_rot, lambda o: [o],
+             [xv * yv]),
+            ("min_max_wide", lambda: WI.min_max_wide(s2p, ctx2, bk2, xs, ys), W9 + 1, list,
+             [np.minimum(xv, yv), np.maximum(xv, yv)])):
+        out, launches, med, times = timed("9", call, 3)
+        if launches != (4 * rotations * s2p.n,) * 2:
+            fail(f"[9] {name}: launches {launches}, expected 2n a rotation")
+        noise_ = max(wide_right(name, sk2, r, w) for r, w in zip(numbers(out), want))
+        rates[name] = B9 / med
+        print(f"[9] {name} on {B9} {W9}-digit pairs: every value right, max |phase noise| "
+              f"{noise_} (Dr = {s2p.Dr}); {rotations} rotations, launches {launches} over 4 "
+              f"calls; {med:.4f} s a call (median of 3: {[round(t, 4) for t in times]} s), "
+              f"{B9 / med:.1f} a second on {card}")
+    print(f"[9] subs/s {rates['sub_wide']:.1f}, wide muls/s {rates['mul_wide']:.1f}, "
+          f"min+max/s {rates['min_max_wide']:.1f} (k=1, n=1024, W={W9}) on {card}")
+    reset()
+    flag = WI.ge_wide(s2p, ctx2, bk2, xs, ys)
+    wide_right("select_wide", sk2, WI.select_wide(s2p, ctx2, bk2, flag, xs, ys),
+               np.where(ge_v == 1, xv, yv))
+    wide_right("eq_wide", sk2, [WI.eq_wide(s2p, ctx2, bk2, xs, ys)], (xv == yv).astype(np.int64))
+    vals = rng.integers(0, top, (4, B9))
+    items = [WI.encrypt_wide(sk2, g2, v, W9) for v in vals]
+    for i, it in enumerate(WI.sort_wide(s2p, ctx2, bk2, items)):
+        wide_right("sort_wide", sk2, it, np.sort(vals, axis=0)[i])
+    d_r, ge_r = WI.sub_wide(s2p, ctx2, bk2, xs, ys, SEED2)
+    wide_right("sub_wide randomized", sk2, d_r, (xv - yv) % top)
+    wide_right("sub_wide randomized", sk2, [ge_r], ge_v)
+    mn, mx = WI.min_max_wide(s2p, ctx2, bk2, xs, ys, SEED2)
+    wide_right("min_max_wide randomized", sk2, mn, np.minimum(xv, yv))
+    wide_right("min_max_wide randomized", sk2, mx, np.maximum(xv, yv))
+    rot = W9 + (1 + 2 * W9 + 1) + 5 * (W9 + 1) + W9 + (W9 + 1)
+    if counts() != (rot * s2p.n,) * 2:
+        fail(f"[9] launches {counts()}, expected {rot} rotations of 2n")
+    print(f"[9] select_wide, eq_wide, sort_wide of 4 x {B9} numbers (5 comparators), "
+          f"randomized sub_wide and min_max_wide: every value right; launches {counts()}")
+    # every batch these ops launch, one step of each kernel against plain
+    check_steps("9", "s2 k=1", s2p, ctx2, bk2,
+                (B9, 2 * B9, 2 * W9 * B9, W9 * W9 * B9, 4 * W9 * B9, 2 * W9 * W9 * B9,
+                 4 * W9 * W9 * B9))
+    # whole ops through the kernels against plain, with pinned seed words:
+    # min_max_wide here, mul_wide (13 rotations) at the toy n = 64
+    x2, y2 = np.array([3, 1]), np.array([2, 3])
+    toy = S2.Params.create(1, 64)
+    ctx_t = S2.make_context(toy, device=dev)
+    sk_t = S2.PrivateKey.create(toy, g2, device=dev)
+    bk_t = S2.BootstrapKey.create(ctx_t, sk_t, g2)
+    for name, params, ctx, bk, sk, fn, count, numbers, want in (
+            ("min_max_wide (n=1024)", s2p, ctx2, bk2, sk2, WI._min_max_wide, 3, list,
+             [np.minimum(x2, y2), np.maximum(x2, y2)]),
+            ("mul_wide (n=64)", toy, ctx_t, bk_t, sk_t, WI._mul_wide,
+             3 + WI._mul_wide_adds(2), lambda o: [o], [x2 * y2])):
+        a2, b2 = WI.encrypt_wide(sk, g2, x2, 2), WI.encrypt_wide(sk, g2, y2, 2)
+        seeds = prg.split_words(SEED2, count)
+        t = time.perf_counter()
+        want_out = numbers(fn(params, ctx, bk, a2, b2, seeds, plain=True))
+        torch.cuda.synchronize()
+        twin_s = time.perf_counter() - t
+        got = numbers(fn(params, ctx, bk, a2, b2, seeds))
+        for w, g in zip(sum(want_out, []), sum(got, [])):
+            if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
+                fail(f"[9] {name}: kernels != plain with pinned seed words")
+        for r, w in zip(got, want):
+            wide_right(name, sk, r, w)
+        print(f"[9] {name}, W=2, B=2, {count} rotations with pinned seed words: kernels' "
+              f"output == plain's bit for bit, values right (plain {twin_s:.2f} s)")
+    phase_done("9")
+
+    # ---- 10. scheme 2 at k = 2 and k = 4, n = 1024 ------------------------------
+    del bk_t, ctx_t
+    runs10 = {}
+    for k, pairs, seed in ((2, 1024, 12), (4, 256, 14)):
+        t = time.perf_counter()
+        pk = S2.Params.create(k)
+        ctx_k = S2.make_context(pk, device=dev)
+        key_bytes = 2 * pk.n * 2 * pk.num_digits * 2 * pk.num_limbs * pk.m * 4
+        free = torch.cuda.mem_get_info()[0]
+        if free < key_bytes + 8 * KEY_CHUNK_BYTES:
+            fail(f"[10] k={k}: {free / 2**30:.1f} GiB free, the key needs "
+                 f"{key_bytes / 2**30:.1f} GiB and its build's chunks")
+        g_k = torch.Generator().manual_seed(seed)
+        sk_k = S2.PrivateKey.create(pk, g_k, device=dev)
+        bk_k = S2.BootstrapKey.create(ctx_k, sk_k, g_k)
+        torch.cuda.synchronize()
+        print(f"[10] k={k}: r={pk.r} m={pk.m} L={pk.num_limbs} q_moduli={pk.q_moduli}; key "
+              f"with Shoup companions made on the card in {time.perf_counter() - t:.1f} s: "
+              f"{2 * bk_k.hat.numel() * 4 / 2**20:.0f} MiB ({free / 2**30:.1f} GiB free "
+              f"before)")
+        K = 2**k
+        x = torch.randint(0, K, (pk.n,), generator=g_k)
+        y = torch.randint(0, K, (pk.n,), generator=g_k)
+        lx = B2.split_ciphertext(pk, *S2.encrypt(sk_k, g_k, x))
+        ly = B2.split_ciphertext(pk, *S2.encrypt(sk_k, g_k, y))
+        lx, ly = T.LWE(lx.a[:pairs], lx.b[:pairs]), T.LWE(ly.a[:pairs], ly.b[:pairs])
+        z = (x + y)[:pairs].to(dev)
+        (digit, cout), l_k, med, times = timed(
+            "10", lambda: B2.add_with_carry(pk, ctx_k, bk_k, lx, ly), 3)
+        noise_ = max(digits_noise(f"10 k={k} add digit", sk_k, digit, z % K),
+                     digits_noise(f"10 k={k} add carry", sk_k, cout, z // K))
+        if l_k != (4 * pk.n,) * 2:
+            fail(f"[10] k={k} add_with_carry launches {l_k}, expected 2n per call")
+        print(f"[10] k={k} add_with_carry on {pairs} digit pairs ({2 * pairs} lanes): every "
+              f"digit and carry right, max |phase noise| {noise_} (Dr = {pk.Dr}); launches "
+              f"{l_k} over 4 calls")
+        print(f"[10] k={k}: {pairs / med:.1f} adds/s (median of 3: "
+              f"{[round(t, 4) for t in times]} s) on {card}")
+        tr_k = trace("10", lambda: B2.add_with_carry(pk, ctx_k, bk_k, lx, ly))
+        top_k = K**2
+        xv_k, yv_k = rng.integers(0, top_k, 64), rng.integers(0, top_k, 64)
+        reset()
+        out = WI.add_wide(pk, ctx_k, bk_k, WI.encrypt_wide(sk_k, g_k, xv_k, 2),
+                          WI.encrypt_wide(sk_k, g_k, yv_k, 2))
+        noise_ = wide_right(f"k={k} add_wide", sk_k, out, xv_k + yv_k)
+        print(f"[10] k={k} add_wide of 64 2-digit pairs: every value right, max |phase "
+              f"noise| {noise_}; launches {counts()}")
+        tag = f"s2 k={k}"
+        time_kernels(tag, pk, ctx_k, bk_k, 2 * pairs, 0, "sgfhe_tpu/ops/fused.py:604",
+                     phase="10")
+        check_steps("10", tag, pk, ctx_k, bk_k, (128,))
+        runs10[tag] = (l_k, 4, tr_k, "w-multiply")
+        del bk_k, sk_k, ctx_k, lx, ly, digit, cout, out
+        torch.cuda.empty_cache()
+    print(f"[10] -Xptxas -v, flatten_ntt_fwd at L=4 randomized: "
+          f"{ptxas_entry(ptxas_text, 'flatten_ntt_fwd_kernelILi4ELb1E')}")
+    print(f"[10] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    phase_done("10")
+
     # On the rows of the modes a main path runs: launches, the kernel's count
     # in that path's run, calls, the number of calls in the run, and
     # trace_ms, its device ms per launch in the traced call. The other modes
     # launched 0 times there.
     runs = {"n=64": (l64, 6, tr64, "carry"), "n=512": (l512, 3, tr512, "w-multiply"),
-            "s2 k=1": (l_add, 4, tr_s2, "w-multiply")}
+            "s2 k=1": (l_add, 4, tr_s2, "w-multiply"), **runs10}
     for row in table:
         tag = row["name"][row["name"].index("(") + 1:-1]
         counts_, calls, tr, mac_mode = runs[tag]

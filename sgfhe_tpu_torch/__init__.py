@@ -12,8 +12,10 @@ the CPU.
 Ported so far: scheme 1's keys (private, public, bootstrap), private,
 public and space-optimal encryption, split, gate bootstrap, packing and
 decryption; scheme 2 (`Scheme2`: params, keys, encryption; `Scheme2Boot`:
-add_with_carry, apply_lut, refresh, mul). See ROADMAP.md for what is still
-to port.
+add_with_carry, apply_lut, refresh, mul; `models.wideint`: wide-integer
+arithmetic over its digits), the boolean-circuit layer (`circuit`:
+`Circuit`, `evaluate_circuit`) and the noise debugger (`debug.noise`).
+See ROADMAP.md for what is still to port.
 """
 
 from .models.params import Params
@@ -42,6 +44,8 @@ from .models.scheme1 import (
 from .models.bootstrap import bootstrap, bootstrap_batch, pack_encrypted_bits
 from .models import scheme2 as Scheme2  # noqa: F401
 from .models import bootstrap2 as Scheme2Boot  # noqa: F401
+from . import circuit  # noqa: F401  (boolean-circuit evaluation layer)
+from .circuit import Circuit, evaluate as evaluate_circuit
 
 __all__ = [
     "Params", "SchemeContext", "make_context",
@@ -52,4 +56,5 @@ __all__ = [
     "decrypt", "decrypt_bit", "split_ciphertext", "deterministic_expand",
     "bootstrap", "bootstrap_batch", "pack_encrypted_bits",
     "Scheme2", "Scheme2Boot",
+    "circuit", "Circuit", "evaluate_circuit",
 ]

@@ -73,6 +73,12 @@ def lwe(a, b, device=None) -> LWE:
     return LWE(tensor(a, device), tensor(b, device))
 
 
+def wide(digits, device=None) -> list[LWE]:
+    """A wide integer's digit LWEs (objects with numpy-convertible a and b,
+    such as the JAX package's wideint digits) -> this package's LWEs."""
+    return [lwe(np.asarray(d.a), np.asarray(d.b), device) for d in digits]
+
+
 def packed_ciphertext(params: Params, a, b, device=None) -> PackedCiphertext:
     return PackedCiphertext(params, RLWE(tensor(a, device), tensor(b, device)))
 

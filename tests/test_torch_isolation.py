@@ -80,7 +80,8 @@ def test_entry_points_without_device_raise_on_cpu_only_host(monkeypatch):
 def test_new_modules_are_covered():
     """The scan above reaches every module of the port, this slice's too."""
     names = {_module_name(f) for f in FILES}
-    for mod in ("models.scheme2", "models.bootstrap2", "utils.bits", "interop"):
+    for mod in ("models.scheme2", "models.bootstrap2", "utils.bits", "interop", "circuit",
+                "models.wideint", "debug.noise"):
         assert f"sgfhe_tpu_torch.{mod}" in names
 
 

@@ -163,3 +163,29 @@ def test_scheme2_add_with_carry_on_card_equals_twin(k):
             assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
         assert torch.equal(B2.decrypt_lwe(sk, got[0]), z % 2**k)
         assert torch.equal(B2.decrypt_lwe(sk, got[1]), z // 2**k)
+
+
+@pytest.mark.cuda
+def test_wideint_add_at_k4_on_card_equals_plain():
+    """Scheme 2 at k = 4 (L = 4, m = 4096 at the toy n = 64): one add_wide
+    of W = 1 digit through the kernels equals the plain versions' output in
+    deterministic and randomized mode and decrypts right."""
+    from sgfhe_tpu_torch.models import wideint as twi
+
+    dev = _card()
+    S2 = T.Scheme2
+    params = S2.Params.create(4, 64)
+    ctx = S2.make_context(params, device=dev)
+    g = torch.Generator().manual_seed(14)
+    sk = S2.PrivateKey.create(params, g, device=dev)
+    bk = S2.BootstrapKey.create(ctx, sk, g)
+    xv, yv = np.array([15, 7, 0, 9]), np.array([15, 9, 0, 3])
+    xs, ys = twi.encrypt_wide(sk, g, xv, 1), twi.encrypt_wide(sk, g, yv, 1)
+    for seeds in (None, [(0x12345678, 0x9ABCDEF0)]):
+        before = tfused.flatten_ntt_fwd.launches
+        got = twi._add_wide(params, ctx, bk, xs, ys, seeds)
+        assert tfused.flatten_ntt_fwd.launches == before + params.n
+        want = twi._add_wide(params, ctx, bk, xs, ys, seeds, plain=True)
+        for w, gt in zip(want, got):
+            assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
+        np.testing.assert_array_equal(twi.decrypt_wide(sk, got), xv + yv)
