@@ -59,10 +59,23 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      trace), add_wide of 64 two-digit numbers, each kernel timed against
      plain and its bound at the shape, and the -Xptxas -v line of the
      L = 4 randomized forward kernel.
-Each phase prints its seconds. The line before the last is the kernel
-table as JSON; the last line is {"ok": true, "device": {...}}. Without a
-CUDA device, or outside a checkout of the repository, it exits nonzero and
-prints no result.
+  11. Params(1024) served through the wire (n = 1024, m = 8192, L = l = 3,
+     2304 MiB key made on the card after a free-memory check): the private
+     key and the seeded bootstrap-key frame written (sizes, seconds and
+     MB/s of to_wire and from_wire), the key loaded on the card equal bit
+     for bit; two 1024-bit messages sent as PackedCiphertext frames, split
+     and bootstrapped on the loaded key (1024 gates, gates/s, launches ==
+     2n per call, a trace), the three output batches sent back as
+     EncryptedBit frames and all 3072 outputs decrypted against the truth
+     tables, deterministic and randomized; each kernel timed against plain
+     and its bound at (1024, 3, 8192) and one step == plain there; the
+     phase-6 scheme-2 key (k = 1, n = 1024, eight 128-index chunks of
+     stream 2) through its seeded frame equal bit for bit; every other
+     frame type and an npz checkpoint round-tripped once at Params(64).
+Each phase prints its seconds, and the build and phases their total. The
+line before the last is the kernel table as JSON; the last line is
+{"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
+of the repository, it exits nonzero and prints no result.
 """
 
 from __future__ import annotations
@@ -167,6 +180,7 @@ def main() -> int:
     import sgfhe_tpu_torch as T
     from sgfhe_tpu_torch import _build
     from sgfhe_tpu_torch import circuit as C
+    from sgfhe_tpu_torch import serialize as S
     from sgfhe_tpu_torch.debug import noise as noise_dbg
     from sgfhe_tpu_torch.models import wideint as WI
     from sgfhe_tpu_torch.models.scheme1 import KEY_CHUNK_BYTES
@@ -198,6 +212,7 @@ def main() -> int:
             ptxas.kill()
             ptxas.communicate()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
+    t_start = t0
     phase_t = [time.perf_counter()]
 
     def phase_done(tag):
@@ -900,12 +915,125 @@ def main() -> int:
     print(f"[10] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     phase_done("10")
 
+    # ---- 11. Params(1024) served end to end through the wire --------------------
+    def timed_s(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
+
+    def same(x, y):
+        return all(torch.equal(getattr(x, f), getattr(y, f)) for f in ("a", "b"))
+
+    p1k = T.Params.create(1024)
+    ctx1k = T.make_context(p1k, device=dev)
+    key_bytes = 2 * p1k.n * 2 * p1k.num_digits * 2 * p1k.num_limbs * p1k.m * 4
+    free = torch.cuda.mem_get_info()[0]
+    if free < 2 * key_bytes + 8 * KEY_CHUNK_BYTES:
+        fail(f"[11] {free / 2**30:.1f} GiB free, the key and its loaded copy need "
+             f"{2 * key_bytes / 2**30:.1f} GiB and the builders' chunks")
+    g1k = torch.Generator().manual_seed(16)
+    sk1k = T.PrivateKey.create(p1k, g1k, device=dev)
+    bk1k, s_key = timed_s(T.BootstrapKey.create, ctx1k, sk1k, g1k)
+    print(f"[11] Params(1024): m={p1k.m} L={p1k.num_limbs} moduli={p1k.moduli}; key with "
+          f"Shoup companions made on the card in {s_key:.1f} s: "
+          f"{2 * bk1k.hat.numel() * 4 / 2**20:.0f} MiB ({free / 2**30:.1f} GiB free before)")
+    raw_sk, s_sk = timed_s(S.to_wire, sk1k)
+    raw_bk, s_to = timed_s(S.bootstrap_key_to_wire_seeded, bk1k)
+    sk_w = S.from_wire(raw_sk, ctx1k)
+    bk_w, s_from = timed_s(S.from_wire, raw_bk, ctx1k)
+    if not torch.equal(sk_w.key, sk1k.key):
+        fail("[11] the private key frame loads another key")
+    if not (torch.equal(bk_w.hat, bk1k.hat) and torch.equal(bk_w.hat_shoup, bk1k.hat_shoup)):
+        fail("[11] the seeded bootstrap-key frame loads another key")
+    mb = len(raw_bk) / 1e6
+    print(f"[11] frames: private key {len(raw_sk)} bytes; seeded bootstrap key "
+          f"{len(raw_bk)} bytes ({len(raw_bk) / 2**20:.1f} MiB, seed and "
+          f"{max(q.bit_length() for q in p1k.moduli)}-bit b-column)")
+    print(f"[11] seeded key to_wire {s_to:.3f} s ({mb / s_to:.1f} MB/s), from_wire on the "
+          f"card {s_from:.3f} s ({mb / s_from:.1f} MB/s: CRC, unpack, a-column drawn again, "
+          f"forward NTT, companions); loaded key == original bit for bit (hat and hat_shoup)")
+    del bk1k
+    torch.cuda.empty_cache()
+    m1 = torch.randint(0, 2, (p1k.n,), generator=g1k)
+    m2 = torch.randint(0, 2, (p1k.n,), generator=g1k)
+    cts = [S.from_wire(S.to_wire(T.encrypt(sk1k, g1k, m)), ctx1k) for m in (m1, m2)]
+    lwe1, lwe2 = (T.split_ciphertext(ct).lwe for ct in cts)
+    y1, y2 = m1.to(dev).bool(), m2.to(dev).bool()
+    out1k, l1k, tr1k = drive("11", p1k, ctx1k, bk_w, sk_w, lwe1, lwe2, y1, y2, reps=3)
+    rnd1k = T.bootstrap_batch(p1k, ctx1k, bk_w.hat, bk_w.hat_shoup, lwe1, lwe2, SEED2)
+    for mode, out in (("deterministic", out1k), ("randomized", rnd1k)):
+        back = [S.from_wire(S.to_wire(T.EncryptedBit(lwe)), ctx1k).lwe for lwe in out]
+        if not all(same(x, y) for x, y in zip(back, out)):
+            fail(f"[11] {mode}: EncryptedBit frames change the gates' outputs")
+        truth_tables(sk_w, back, y1, y2)
+        print(f"[11] {mode}: {p1k.n} gates' AND/OR/XOR sent back as EncryptedBit frames, all "
+              f"{3 * p1k.n} outputs decrypt right with the loaded private key")
+    time_kernels("n=1024", p1k, ctx1k, bk_w, p1k.n, 0, "sgfhe_tpu/ops/fused.py:604",
+                 phase="11")
+    check_steps("11", "n=1024", p1k, ctx1k, bk_w, (p1k.n,))
+    print(f"[11] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del bk_w, out1k, rnd1k
+    torch.cuda.empty_cache()
+    # the phase-6 scheme-2 key through its seeded frame (stream 2)
+    raw2, s_to2 = timed_s(S.bootstrap_key_to_wire_seeded, bk2)
+    bk2_w, s_from2 = timed_s(S.from_wire, raw2, ctx2)
+    if not (torch.equal(bk2_w.hat, bk2.hat) and torch.equal(bk2_w.hat_shoup, bk2.hat_shoup)):
+        fail("[11] the scheme-2 seeded frame loads another key")
+    del bk2_w
+    print(f"[11] scheme 2 k={s2p.k} n={s2p.n} seeded key frame {len(raw2)} bytes "
+          f"({s2p.n // min(s2p.n, 128)} chunks of stream 2): to_wire {s_to2:.3f} s, from_wire "
+          f"{s_from2:.3f} s, loaded key == original bit for bit")
+    # every other frame type once at Params(64), and an npz checkpoint
+    pk64 = T.PublicKey.create(ctx64, sk64, g64)
+    msg = torch.randint(0, 2, (p64.n,), generator=g64)
+    ct64 = T.encrypt(sk64, g64, msg)
+    bits64 = T.split_ciphertext(ct64)
+    small = [
+        ("private key", sk64, lambda o: [o.key]),
+        ("public key", pk64, lambda o: [o.k0, o.k1]),
+        ("bootstrap key", bk64, lambda o: [o.hat, o.hat_shoup]),
+        ("packed ciphertext", ct64, lambda o: [o.rlwe.a, o.rlwe.b]),
+        ("ciphertext", T.pack_encrypted_bits(p64, ctx64, bk64, bits64), lambda o: [o.rlwe.a,
+                                                                                     o.rlwe.b]),
+        ("encrypted bits", bits64, lambda o: [o.lwe.a, o.lwe.b]),
+        ("private space-optimal", T.encrypt_optimal(sk64, g64, msg), lambda o: [o.u, o.v]),
+        ("public space-optimal", T.encrypt_optimal(pk64, ctx64, g64, msg),
+         lambda o: [o.a_bits, o.b_bits]),
+    ]
+    for name, obj, fields in small:
+        back = S.from_wire(S.to_wire(obj), ctx64)
+        if not all(torch.equal(x, y) for x, y in zip(fields(obj), fields(back))):
+            fail(f"[11] {name} frame at Params(64) loads another object")
+        if name.endswith("ciphertext") and not torch.equal(T.decrypt(sk64, back),
+                                                           msg.to(dev).bool()):
+            fail(f"[11] {name} frame decrypts wrong")
+    x2 = torch.randint(0, 2**s2p.k, (s2p.n,), generator=g2)
+    p2w, a2w, b2w = S.from_wire(S.s2_ciphertext_to_wire(s2p, *S2.encrypt(sk2, g2, x2)), ctx2)
+    if p2w != s2p or not torch.equal(S2.decrypt(sk2, a2w, b2w), x2.to(dev)):
+        fail("[11] scheme-2 ciphertext frame decrypts wrong")
+    lw = B2.split_ciphertext(s2p, a2w, b2w)
+    if not same(S.from_wire(S.s2_lwe_to_wire(s2p, lw), ctx2)[1], lw):
+        fail("[11] scheme-2 LWE frame loads another batch")
+    ckpt = ROOT / "build" / "chip_smoke_bkey64.npz"
+    S.save(ckpt, bk64)
+    bk64_c = S.load(ckpt, device=dev)
+    ckpt.unlink()
+    if not (torch.equal(bk64_c.hat, bk64.hat) and torch.equal(bk64_c.hat_shoup, bk64.hat_shoup)):
+        fail("[11] npz checkpoint loads another key")
+    print(f"[11] Params(64): {len(small)} frame types and the two scheme-2 frames round-trip "
+          f"equal on the card (ciphertexts decrypt right); npz checkpoint of the key equal")
+    phase_done("11")
+    print(f"[total] build and phases {time.perf_counter() - t_start:.1f} s")
+
     # On the rows of the modes a main path runs: launches, the kernel's count
     # in that path's run, calls, the number of calls in the run, and
     # trace_ms, its device ms per launch in the traced call. The other modes
     # launched 0 times there.
     runs = {"n=64": (l64, 6, tr64, "carry"), "n=512": (l512, 3, tr512, "w-multiply"),
-            "s2 k=1": (l_add, 4, tr_s2, "w-multiply"), **runs10}
+            "s2 k=1": (l_add, 4, tr_s2, "w-multiply"), **runs10,
+            "n=1024": (l1k, 4, tr1k, "w-multiply")}
     for row in table:
         tag = row["name"][row["name"].index("(") + 1:-1]
         counts_, calls, tr, mac_mode = runs[tag]

@@ -14,8 +14,10 @@ public and space-optimal encryption, split, gate bootstrap, packing and
 decryption; scheme 2 (`Scheme2`: params, keys, encryption; `Scheme2Boot`:
 add_with_carry, apply_lut, refresh, mul; `models.wideint`: wide-integer
 arithmetic over its digits), the boolean-circuit layer (`circuit`:
-`Circuit`, `evaluate_circuit`) and the noise debugger (`debug.noise`).
-See ROADMAP.md for what is still to port.
+`Circuit`, `evaluate_circuit`), the noise debugger (`debug.noise`), and
+the wire frames and npz checkpoints of keys and ciphertexts (`serialize`,
+byte for byte the JAX package's, over the C++ codec of `native`). See
+ROADMAP.md for what is still to port.
 """
 
 from .models.params import Params
@@ -46,6 +48,7 @@ from .models import scheme2 as Scheme2  # noqa: F401
 from .models import bootstrap2 as Scheme2Boot  # noqa: F401
 from . import circuit  # noqa: F401  (boolean-circuit evaluation layer)
 from .circuit import Circuit, evaluate as evaluate_circuit
+from . import serialize  # noqa: F401  (wire frames, checkpoints)
 
 __all__ = [
     "Params", "SchemeContext", "make_context",
@@ -56,5 +59,5 @@ __all__ = [
     "decrypt", "decrypt_bit", "split_ciphertext", "deterministic_expand",
     "bootstrap", "bootstrap_batch", "pack_encrypted_bits",
     "Scheme2", "Scheme2Boot",
-    "circuit", "Circuit", "evaluate_circuit",
+    "circuit", "Circuit", "evaluate_circuit", "serialize",
 ]

@@ -34,13 +34,16 @@ def tensor(x, device=None) -> torch.Tensor:
 
 
 def bits_tensor(x, device=None) -> torch.Tensor:
-    """numpy array of uint32 values -> int32 tensor of the same bit patterns."""
-    return mm.bits32(tensor(x, device))
+    """numpy array of uint32 values -> int32 tensor of the same bit patterns
+    (one uint32 copy on the host, no int64 one: keys reach GiBs)."""
+    return torch.from_numpy(np.array(x, dtype=np.uint32).view(np.int32)).to(resolve_device(device))
 
 
 def to_numpy(t: torch.Tensor) -> np.ndarray:
     """Tensor of uint32 values (int64 values, or int32 bit patterns) ->
-    numpy uint32."""
+    a fresh numpy uint32 array."""
+    if t.dtype == torch.int32:  # bit patterns: no int64 copy
+        return t.detach().contiguous().to("cpu", copy=True).numpy().view(np.uint32)
     return (t.detach().cpu().to(torch.int64) & mm.MASK32).numpy().astype(np.uint32)
 
 

@@ -25,6 +25,7 @@ from ..ops import fused as fused_mod
 from ..ops import modmath as mm
 from ..ops import ntt as ntt_mod
 from ..ops import poly as pol
+from ..ops import prg
 from ..ops import rns as rns_mod
 from ..utils import bits as bits_mod
 from ..utils import prng
@@ -110,6 +111,12 @@ class LWE:
 
     a: torch.Tensor
     b: torch.Tensor
+
+    def __add__(self, other):
+        return LWE(self.a + other.a, self.b + other.b)  # callers mask mod r
+
+    def __sub__(self, other):
+        return LWE(self.a - other.a, self.b - other.b)
 
 
 @dataclasses.dataclass
@@ -222,17 +229,31 @@ def _pubkey_k1(ctx, s_bits, k0, e):
 class BootstrapKey:
     """NTT-domain GSW encryptions of the key bits with Shoup companions.
 
-    hat / hat_shoup: (n, 2l, 2, L, m) int32 holding uint32 values."""
+    hat / hat_shoup: (n, 2l, 2, L, m) int32 holding uint32 values. seed:
+    the two uint32 words of the key the uniform a-column is drawn from
+    (stream 1, `_a_column`), or None for a key loaded without one."""
 
     params: Params
     hat: torch.Tensor
     hat_shoup: torch.Tensor
+    seed: "np.ndarray | None" = None
 
     @classmethod
     def create(cls, ctx: SchemeContext, sk: PrivateKey,
                generator: torch.Generator) -> "BootstrapKey":
         """Reference src/fhe.jl:181-201: noise in [-n, n]."""
-        return cls(sk.params, *_bootstrap_key(sk.params, ctx, sk.key, generator, sk.params.n))
+        seed = _draw_seed(generator)
+        return cls(sk.params, *_bootstrap_key(sk.params, ctx, sk.key, generator, sk.params.n,
+                                              seed, 1), seed=seed)
+
+    @classmethod
+    def from_seeded(cls, params: Params, ctx: SchemeContext, seed,
+                    b_hat: torch.Tensor) -> "BootstrapKey":
+        """The key from its seed and b-column (n, 2l, L, m): the a-column
+        drawn again and transformed, the companions recomputed; equal bit
+        for bit to the key `create` made with that seed."""
+        seed = np.asarray(seed, dtype=np.uint32)
+        return cls(params, *_seeded_key(params, ctx, seed, b_hat, 1), seed=seed)
 
 
 def _shoup_companion(hat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
@@ -251,25 +272,94 @@ def _uniform_residues(generator, shape, moduli, device):
     return torch.stack(cols, dim=-2)
 
 
-def _bootstrap_key(params, ctx, s_bits, generator, noise: int):
+def _draw_seed(generator: torch.Generator) -> np.ndarray:
+    """Two uint32 words from `generator`: the key of a bootstrap key's
+    a-column."""
+    return _draw(generator, 0, 1 << 32, (2,), "cpu").numpy().astype(np.uint32)
+
+
+#: Key indices a chunk of scheme 2's a-column stream (stream 2) covers:
+#: chunk c draws from fold_in(seed, c), as the JAX package's
+#: `BootstrapKey.KEY_CHUNK` (sgfhe_tpu/models/scheme2.py).
+STREAM2_CHUNK = 128
+
+
+def _a_column(params, seed: np.ndarray, start: int, stop: int, stream: int,
+              device) -> torch.Tensor:
+    """The uniform a-column of key indices [start, stop), (stop - start,
+    2l, L, m) int64, drawn as the JAX package's
+    `_uniform_residues(k, (count, 2l, L, m), moduli)` draws it from the key
+    `seed`: one `split(k, L)` key a limb, `randint(0, p)` on a flat counter
+    over (key index, row, coefficient). Stream 1 (scheme 1) draws all n
+    indices from the seed itself; stream 2 (scheme 2) draws chunk c of
+    STREAM2_CHUNK indices from fold_in(seed, c). Any [start, stop) equals
+    that slice of the whole."""
+    rows, m = 2 * params.num_digits, params.m
+    key = torch.as_tensor(seed.astype(np.int64), device=device)
+    if stream == 1:
+        parts = [(key, start, stop)]
+    else:
+        size = min(STREAM2_CHUNK, params.n)
+        parts = [(prg.key_fold_in(key, c), max(start, c * size) - c * size,
+                  min(stop, (c + 1) * size) - c * size)
+                 for c in range(start // size, -(-stop // size))]
+    out = []
+    for k, i0, i1 in parts:
+        limbs = prg.key_split(k, len(params.moduli))
+        out.append(torch.stack([
+            prg.randint(limbs[i], (i1 - i0, rows, m), 0, p, offset=i0 * rows * m)
+            for i, p in enumerate(params.moduli)], dim=-2))
+    return torch.cat(out)
+
+
+def _key_chunk(params) -> int:
+    """Key indices a chunk of the bootstrap-key builders: at most
+    KEY_CHUNK_BYTES of int64 hat."""
+    per = 2 * params.num_digits * 2 * params.num_limbs * params.m * 8
+    return max(1, min(params.n, KEY_CHUNK_BYTES // per))
+
+
+def _bootstrap_key(params, ctx, s_bits, generator, noise: int, seed: np.ndarray,
+                   stream: int):
     """The bootstrap key of either scheme, (hat, hat_shoup) int32 holding
-    uint32 values: the GSW rows of `_gsw_hat` with noise in [-noise, noise],
-    built in chunks of key indices of at most KEY_CHUNK_BYTES of int64 hat,
-    so that the device holds the finished int32 key and one chunk's
-    temporaries (scheme 2's key at k = 5 is 16 GiB with its companions)."""
+    uint32 values: the GSW rows of `_gsw_hat` with the a-column of `seed`
+    on `stream` (`_a_column`) and noise in [-noise, noise] from
+    `generator`, built in chunks of key indices (`_key_chunk`), so that the
+    device holds the finished int32 key and one chunk's temporaries
+    (scheme 2's key at k = 5 is 16 GiB with its companions)."""
     n, m, L = params.n, params.m, params.num_limbs
     rows = 2 * params.num_digits
     dev = ctx.device
-    chunk = max(1, min(n, KEY_CHUNK_BYTES // (rows * 2 * L * m * 8)))
+    chunk = _key_chunk(params)
     s_rns, s_hat = _key_rns(ctx, s_bits, m, L)
     hat = torch.empty((n, rows, 2, L, m), dtype=torch.int32, device=dev)
     shoup = torch.empty_like(hat)
     for i in range(0, n, chunk):
         c = slice(i, min(n, i + chunk))
         nc = c.stop - c.start
-        a = _uniform_residues(generator, (nc, rows, L, m), params.moduli, dev)
+        a = _a_column(params, seed, c.start, c.stop, stream, dev)
         e = _draw(generator, -noise, noise + 1, (nc, rows, 1, m), dev)
         h = _gsw_hat(params, ctx, s_rns, s_hat, s_bits[c], a, e)
+        hat[c] = h.to(torch.int32)
+        shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+    return hat, shoup
+
+
+def _seeded_key(params, ctx, seed: np.ndarray, b_hat: torch.Tensor, stream: int):
+    """(hat, hat_shoup) of either scheme from the a-column's seed and the
+    b-column (n, 2l, L, m) of any integer dtype holding uint32 values, on
+    any device: the a-column drawn again (`_a_column`) and transformed,
+    then the companions, chunk by chunk on ctx's device."""
+    n, m, L = params.n, params.m, params.num_limbs
+    rows = 2 * params.num_digits
+    dev = ctx.device
+    chunk = _key_chunk(params)
+    hat = torch.empty((n, rows, 2, L, m), dtype=torch.int32, device=dev)
+    shoup = torch.empty_like(hat)
+    for i in range(0, n, chunk):
+        c = slice(i, min(n, i + chunk))
+        a_hat = ntt_mod.ntt_fwd(ctx.plan_Q, _a_column(params, seed, c.start, c.stop, stream, dev))
+        h = torch.stack([a_hat, mm.u32(b_hat[c].to(dev))], dim=2)
         hat[c] = h.to(torch.int32)
         shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
     return hat, shoup

@@ -31,6 +31,7 @@ from __future__ import annotations
 import dataclasses
 import math
 
+import numpy as np
 import torch
 
 from ..ops import fused as fused_mod
@@ -192,17 +193,30 @@ class BootstrapKey:
     """GSW encryptions of the key bits with noise ±tau, the rows of scheme
     1's key (reference src/fhe2.jl:104-131), in the hat domain with Shoup
     companions: hat / hat_shoup (n, 2l, 2, L, m) int32 holding uint32
-    values, built in chunks of key indices (scheme1._bootstrap_key)."""
+    values, built in chunks of key indices (scheme1._bootstrap_key). The
+    a-column is drawn from `seed` on stream 2, the JAX package's chunked
+    draw (scheme1._a_column), whatever the builder's own chunks."""
 
     params: Params
     hat: torch.Tensor
     hat_shoup: torch.Tensor
+    seed: "np.ndarray | None" = None
 
     @classmethod
     def create(cls, ctx: Scheme2Context, sk: PrivateKey,
                generator: torch.Generator) -> "BootstrapKey":
         params = sk.params
-        return cls(params, *s1._bootstrap_key(params, ctx, sk.key, generator, params.tau))
+        seed = s1._draw_seed(generator)
+        return cls(params, *s1._bootstrap_key(params, ctx, sk.key, generator, params.tau,
+                                              seed, 2), seed=seed)
+
+    @classmethod
+    def from_seeded(cls, params: Params, ctx: Scheme2Context, seed,
+                    b_hat: torch.Tensor) -> "BootstrapKey":
+        """The key from its seed and b-column, as scheme 1's
+        `BootstrapKey.from_seeded`, on stream 2."""
+        seed = np.asarray(seed, dtype=np.uint32)
+        return cls(params, *s1._seeded_key(params, ctx, seed, b_hat, 2), seed=seed)
 
 
 def deterministic_expand(params: Params, u: torch.Tensor) -> torch.Tensor:
@@ -268,3 +282,24 @@ def decrypt(sk: PrivateKey, a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
     sa = pol.negacyclic_mul_bits(a, sk.key, mask, params.q_moduli)
     snapped = (((b - sa) & mask) + params.Dr // 2) & mask
     return snapped // params.Dr
+
+
+# The functional bootstrap and the wide integers, served from this module
+# as the JAX package's scheme-2 module serves them (lazily: both import
+# this module).
+_BOOTSTRAP2_EXPORTS = frozenset({
+    "bootstrap", "add_with_carry", "mul", "apply_lut", "refresh",
+    "split_ciphertext", "decrypt_lwe", "lwe_phase_noise", "make_table", "tables_hat",
+})
+
+
+def __getattr__(name: str):
+    if name in _BOOTSTRAP2_EXPORTS:
+        from . import bootstrap2
+
+        return getattr(bootstrap2, name)
+    if name == "wideint":
+        from . import wideint
+
+        return wideint
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

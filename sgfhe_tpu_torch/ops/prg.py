@@ -22,11 +22,28 @@ derives disjoint keys for its stages. The JAX package folds with
 defines its own fold and split on the same cipher, so the internal
 entries, which take the words as given, are the ones that agree with the
 JAX package bit for bit.
+
+Key streams. Where a result must equal the JAX package's own draws (the
+seeded bootstrap key's a-column, `prng_expand`), `key_split`,
+`key_fold_in`, `random_bits32` and `randint` rebuild `jax.random`'s
+Threefry streams (the partitionable layout) on int64 tensors. A key is an
+int64 tensor (..., 2) holding two uint32 words, the data of a JAX key:
+
+    split(k, num)[i]       = Threefry2x32(k; (0, i))
+    fold_in(k, w)          = Threefry2x32(k; (0, w))
+    random_bits32(k)[i]    = y0 ^ y1 of Threefry2x32(k; (0, i)), i the
+                             flat index
+    randint(k, lo, hi)[i]  = lo + (((hb % span) * mult mod 2^32
+                             + lb % span) mod 2^32) % span, with k1, k2 =
+                             split(k, 2), hb and lb the bits of k1 and k2,
+                             span = hi - lo, mult = ((2^16 % span)^2
+                             mod 2^32) % span (0 for every span > 2^16)
 """
 
 from __future__ import annotations
 
 import itertools
+import math
 
 import torch
 
@@ -94,3 +111,57 @@ def split_words(seed2, count: int) -> list:
 def mask_stream_c1(step: int, op: int, pair: int, num_pairs: int) -> int:
     """The ctr1 word of the flatten-mask stream (see module docstring)."""
     return ((int(step) * 2 + op) * num_pairs + pair) & MASK32
+
+
+# ---------------------------------------------------------------------------
+# The JAX package's key streams (see the module docstring)
+# ---------------------------------------------------------------------------
+
+
+def _key_words(k: torch.Tensor, extra_dims: int):
+    """The two words of keys (..., 2), each shaped (...,) + (1,) * extra_dims."""
+    shape = k.shape[:-1] + (1,) * extra_dims
+    return k[..., 0].reshape(shape), k[..., 1].reshape(shape)
+
+
+def key_split(k: torch.Tensor, num: int) -> torch.Tensor:
+    """`jax.random.split(k, num)`: keys (..., 2) -> (..., num, 2)."""
+    k0, k1 = _key_words(k, 1)
+    y0, y1 = threefry2x32(k0, k1, 0, torch.arange(num, device=k.device))
+    return torch.stack([y0, y1], dim=-1)
+
+
+def key_fold_in(k: torch.Tensor, w) -> torch.Tensor:
+    """`jax.random.fold_in(k, w)` for keys (..., 2) and words w (an int or
+    a tensor broadcasting against the keys' batch shape)."""
+    k0, k1 = _key_words(k, 0)
+    y0, y1 = threefry2x32(k0, k1, 0, torch.as_tensor(w, device=k.device) & MASK32)
+    return torch.stack([y0, y1], dim=-1)
+
+
+def random_bits32(k: torch.Tensor, shape, offset: int = 0) -> torch.Tensor:
+    """`jax.random.bits(k, shape, uint32)` for keys (..., 2) -> (...,) +
+    shape int64. `offset` starts the flat counter at that index, so a
+    chunk of a larger draw equals the same slice of the one-shot draw."""
+    shape = tuple(shape)
+    count = math.prod(shape)
+    assert offset + count <= 1 << 32, "the flat counter is one 32-bit word"
+    ctr = torch.arange(offset, offset + count, device=k.device).reshape(shape)
+    k0, k1 = _key_words(k, len(shape))
+    y0, y1 = threefry2x32(k0, k1, 0, ctr)
+    return y0 ^ y1
+
+
+def randint(k: torch.Tensor, shape, lo: int, hi: int, offset: int = 0) -> torch.Tensor:
+    """`jax.random.randint(k, shape, lo, hi, int32)` for one key (2,) ->
+    int64 tensor `shape`; `offset` as in `random_bits32`. The products
+    and sums wrap at 2^32 as the JAX package's uint32 arithmetic does."""
+    assert -(1 << 31) <= lo and hi <= (1 << 31) - 1, "int32 bounds only"
+    span = max(hi - lo, 1)
+    mult = ((((1 << 16) % span) ** 2) & MASK32) % span
+    k_hi, k_lo = key_split(k, 2).unbind(0)
+    offs = random_bits32(k_lo, shape, offset) % span
+    if mult:  # 0 for every span above 2^16: the high draw drops out
+        hb = random_bits32(k_hi, shape, offset) % span
+        offs = (((hb * mult) & MASK32) + offs) & MASK32
+    return lo + offs % span

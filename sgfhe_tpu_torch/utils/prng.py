@@ -1,15 +1,14 @@
 """Deterministic expansion of seed bits (counterpart of
 sgfhe_tpu/utils/prng.py; reference src/utils.jl:63-68 `prng_expand`).
 
-The JAX package expands through `jax.random`. This package defines its own
-expansion on Threefry-2x32 (ops/prg.py), so its `a` polynomials differ from
-the JAX package's for the same seed bits; only a wire format would need the
-same stream, and the port has none yet. The expansion:
+The same stream as the JAX package's, which folds the seed's words into
+`jax.random.key(0)` and draws `jax.random.bits` from the result, rebuilt on
+Threefry-2x32 (ops/prg.py), so a space-optimal ciphertext made by either
+package normalizes to the same `a` in the other:
 
     words w_0 .. w_{n/32-1}: the seed bits packed little-endian, 32 a word
-    key = (0, 0); for each word j: key = Threefry2x32(key; w_j, j)
-    raw[2i], raw[2i+1] = Threefry2x32(key; i, 0x50524E47)   ("PRNG")
-    out = raw & (2^factor - 1)
+    key = (0, 0); for each word j in order: key = Threefry2x32(key; (0, w_j))
+    out[i] = (y0 ^ y1 of Threefry2x32(key; (0, i))) & (2^factor - 1)
 """
 
 from __future__ import annotations
@@ -17,8 +16,6 @@ from __future__ import annotations
 import torch
 
 from ..ops import prg
-
-_EXPAND_DOMAIN = 0x50524E47
 
 
 def prng_expand(bits: torch.Tensor, factor: int) -> torch.Tensor:
@@ -30,13 +27,10 @@ def prng_expand(bits: torch.Tensor, factor: int) -> torch.Tensor:
         32, dtype=torch.int64, device=dev
     )
     words = (bits.to(torch.int64).reshape(bits.shape[:-1] + (n // 32, 32)) * weights).sum(-1)
-    k0 = torch.zeros(bits.shape[:-1] + (1,), dtype=torch.int64, device=dev)
-    k1 = k0
+    key = torch.zeros(bits.shape[:-1] + (2,), dtype=torch.int64, device=dev)
     for j in range(n // 32):
-        k0, k1 = prg.threefry2x32(k0, k1, words[..., j:j + 1], j)
-    ctr = torch.arange(n // 2, dtype=torch.int64, device=dev)
-    y0, y1 = prg.threefry2x32(k0, k1, ctr, _EXPAND_DOMAIN)
-    raw = torch.stack([y0, y1], dim=-1).reshape(bits.shape[:-1] + (n,))
+        key = prg.key_fold_in(key, words[..., j])
+    raw = prg.random_bits32(key, (n,))
     if factor >= 32:
         return raw
     return raw & ((1 << factor) - 1)

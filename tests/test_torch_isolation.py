@@ -81,7 +81,7 @@ def test_new_modules_are_covered():
     """The scan above reaches every module of the port, this slice's too."""
     names = {_module_name(f) for f in FILES}
     for mod in ("models.scheme2", "models.bootstrap2", "utils.bits", "interop", "circuit",
-                "models.wideint", "debug.noise"):
+                "models.wideint", "debug.noise", "native", "serialize"):
         assert f"sgfhe_tpu_torch.{mod}" in names
 
 

@@ -197,8 +197,8 @@ def test_public_key_and_encryption_from_reference_draws(kind):
 
 
 def test_private_optimal_encoding_equals_reference():
-    """The reference's space-optimal private ciphertext normalizes to its b
-    (the port's u-expansion is its own, so a differs by design)."""
+    """The reference's space-optimal private ciphertext normalizes to its a
+    and b: the port expands u on the reference's own stream."""
     params = F.Params.create(64)
     sk = F.PrivateKey.create(params, jax.random.key(1))
     msg = jnp.asarray(np.arange(params.n) % 3 == 0)
@@ -206,8 +206,23 @@ def test_private_optimal_encoding_equals_reference():
     ref = F.normalize_ciphertext(opt)
     got = T.normalize_ciphertext(T.PrivateEncryptedCiphertext(
         params, torch.as_tensor(np.array(opt.u)), torch.as_tensor(np.array(opt.v))))
+    _eq(ref.rlwe.a, got.rlwe.a)
     _eq(ref.rlwe.b, got.rlwe.b)
     _eq(F.encrypt(sk, jax.random.key(5), msg).rlwe.b, got.rlwe.b)
+
+
+def test_lwe_add_sub_equal_reference_mod_r():
+    """LWE + and - as in the reference (callers mask mod r)."""
+    params = F.Params.create(64)
+    rng = np.random.default_rng(8)
+    a1, a2 = (rng.integers(0, params.r, (3, params.n)) for _ in range(2))
+    b1, b2 = (rng.integers(0, params.r, 3) for _ in range(2))
+    r1, r2 = F.LWE(_u32(a1), _u32(b1)), F.LWE(_u32(a2), _u32(b2))
+    t1, t2 = interop.lwe(a1, b1, "cpu"), interop.lwe(a2, b2, "cpu")
+    for ref, got in ((r1 + r2, t1 + t2), (r1 - r2, t1 - t2), (r2 - r1, t2 - t1)):
+        assert isinstance(got, T.LWE)
+        _eq(np.asarray(ref.a) & params.mask_r, got.a & params.mask_r)
+        _eq(np.asarray(ref.b) & params.mask_r, got.b & params.mask_r)
 
 
 # ---------------------------------------------------------------------------

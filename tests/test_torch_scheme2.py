@@ -242,3 +242,18 @@ def test_port_keys_encrypt_decrypt(toy, monkeypatch):
     shape = (tp.n, 2 * tp.num_digits, 2, tp.num_limbs, tp.m)
     assert bk.hat.shape == bk.hat_shoup.shape == shape and bk.hat.dtype == torch.int32
     _eq(ts1._shoup_companion(bk.hat.long(), tctx.plan_Q.p), bk.hat_shoup)
+
+
+def test_module_serves_bootstrap2_and_wideint():
+    """`Scheme2.add_with_carry` and the other functional-bootstrap names,
+    and `Scheme2.wideint`, as the reference's module serves them."""
+    import sgfhe_tpu_torch as T
+    from sgfhe_tpu_torch.models import bootstrap2, wideint
+
+    assert ts2._BOOTSTRAP2_EXPORTS == rs2._BOOTSTRAP2_EXPORTS
+    for name in sorted(rs2._BOOTSTRAP2_EXPORTS):
+        assert getattr(T.Scheme2, name) is getattr(bootstrap2, name)
+        assert getattr(T.Scheme2, name) is getattr(T.Scheme2Boot, name)
+    assert T.Scheme2.wideint is wideint
+    with pytest.raises(AttributeError, match="no attribute"):
+        T.Scheme2.not_a_name  # noqa: B018
