@@ -31,8 +31,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      on 1024 digit pairs (2048 lanes) and mul on 256 pairs, every output
      digit decrypted against plaintext arithmetic, adds/s and muls/s,
      launches == 2n per rotation round, a trace of one add_with_carry
-     call, and on 4 pairs the kernels' output of add_with_carry and of mul
-     equal to the twin's in deterministic and randomized mode.
+     call; and at the toy n = 64 (k=1, a smaller depth; phase 12 does the
+     same at n = 1024), on 4 pairs the kernels' output of add_with_carry
+     and of mul equal to the twin's in deterministic and randomized mode.
   7. the rest of scheme 1's API at Params(512): a public key, its
      ciphertexts through split, bootstrap_batch and decrypt (truth
      tables), the space-optimal round trip for both key types, and
@@ -50,9 +51,9 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      digits, 64 numbers: add_wide, sub_wide, mul_wide and min_max_wide
      timed, select_wide, eq_wide and sort_wide (N = 4), randomized
      sub_wide and min_max_wide, every value against numpy; one step of each
-     kernel == plain at every batch these ops launch; min_max_wide (n=1024)
-     and mul_wide (the toy n=64) at W = 2, B = 2 through the kernels equal
-     to plain with pinned seed words.
+     kernel == plain at every batch these ops launch; min_max_wide and
+     mul_wide at the toy n=64 (a smaller depth), W = 2, B = 2, through the
+     kernels equal to plain with pinned seed words.
   10. scheme 2 at k=2 and k=4, n=1024 (m = 4096 and 16384, L = 3 and 4):
      each key made on the card after a free-memory check, add_with_carry
      on 1024 and 256 pairs (adds/s, every digit, max |phase noise|, a
@@ -72,6 +73,25 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      phase-6 scheme-2 key (k = 1, n = 1024, eight 128-index chunks of
      stream 2) through its seeded frame equal bit for bit; every other
      frame type and an npz checkpoint round-tripped once at Params(64).
+  12. scheme 2 at k=3, n=1024 (m = 8192, L = l = 3, 2304 MiB key made on
+     the card after a free-memory check): add_with_carry on 512 pairs
+     (1024 lanes, Params(1024)'s kernel shape) exact, randomized and with
+     prune = 2, mul on 128 pairs, every digit and carry decrypted against
+     plaintext arithmetic, adds/s, muls/s, max |phase noise|, launches ==
+     2n per rotation round, a trace of one add; one step == plain at every
+     batch these launch; on 4 pairs the kernels' add_with_carry and mul
+     equal to the twin's, deterministic and randomized.
+  13. scheme 2 at k=5, n=1024 (m = 32768 = the kernels' MAX_M, L = l = 4,
+     16 GiB key made on the card after a free-memory check, its build
+     timed): add_with_carry on 256 pairs (512 lanes) exact, one traced
+     call then adds/s over two more, max |phase noise|; randomized and
+     prune = 1 on 32 pairs,
+     every digit and carry right; each kernel timed against plain and its
+     bound at (512, 4, 32768) in both of its modes; one step == plain at
+     every batch the phase launches.
+  14. the single-card examples in-process on the card: adder (8 bits,
+     n = 64, 4 instances) and depth (10 generations, n = 64), each checking
+     its own results, launches counted.
 Each phase prints its seconds, and the build and phases their total. The
 line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -82,6 +102,7 @@ from __future__ import annotations
 
 import dataclasses
 import json
+import statistics
 import subprocess
 import sys
 import time
@@ -362,11 +383,14 @@ def main() -> int:
         print(f"[{phase}] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), plain "
               f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}")
 
-    def time_kernels(tag, params, ctx, bk, B, main_t, replaces, phase="3"):
+    def time_kernels(tag, params, ctx, bk, B, main_t, replaces, phase="3", reps=None):
         """Each kernel in both of its modes at one main path's shape: == plain,
-        ms per launch (steps 0..n-1 in turn), plain ms, bound; one table row
-        each."""
+        ms per launch (over `reps` launches, n by default, walking the
+        key's steps 0..n-1 in turn at a stride of n / reps), plain ms,
+        bound; one table row each."""
         L, m, n = params.num_limbs, params.m, params.n
+        reps = reps or n
+        stride = n // reps
         ua, a0, b0 = rand_acc(params, B, 5)
         acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
         u = ua[:, 0].to(torch.int32).contiguous()
@@ -381,7 +405,7 @@ def main() -> int:
             if err:
                 fail(f"{tag}: flatten_ntt_fwd vs plain max_abs_err {err}")
             d_k = got if seed2 is None else d_k
-            ms = cuda_ms(lambda i: fused.flatten_ntt_fwd(ctx, acc, i % n, seed2), n)
+            ms = cuda_ms(lambda i: fused.flatten_ntt_fwd(ctx, acc, i * stride % n, seed2), reps)
             pms = cuda_ms(lambda i: fused.flatten_ntt_fwd_plain(ctx, acc, i % n, seed2), 3)
             name = f"flatten_ntt_fwd{' randomized' if seed2 else ''} ({tag})"
             add_row(phase, name, replaces, err, ms, pms, fwd_cost(B, L, m, L, seed2 is not None))
@@ -399,7 +423,7 @@ def main() -> int:
             if err:
                 fail(f"{tag}: mac_rotate_ntt_inv t_mode {t_mode} vs plain max_abs_err {err}")
             ms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv(
-                ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_k), n)
+                ctx, d_k, bk.hat, bk.hat_shoup, i * stride % n, u, 0, t_mode, carry_k), reps)
             pms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv_plain(
                 ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_p), 3)
             name = f"mac_rotate_ntt_inv {'carry' if t_mode else 'w-multiply'} ({tag})"
@@ -408,33 +432,36 @@ def main() -> int:
     for shape in shapes:
         time_kernels(*shape)
 
-    def check_steps(phase, tag, params, ctx, bk, batches):
+    def check_steps(phase, tag, params, ctx, bk, batches, prune=0):
         """One step of each kernel, bit for bit against plain, in both modes
-        and T-modes 0 and 2, at each batch in `batches`."""
+        and T-modes 0 and 2 (0 alone when pruned), at each batch in
+        `batches`."""
         L, m = params.num_limbs, params.m
         for B in batches:
             ua, a0, b0 = rand_acc(params, B, 7 + B)
             acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
             u = ua[:, 1].to(torch.int32).contiguous()
+            t_modes = (0, 2) if prune == 0 else (0,)
             for seed2 in (None, SEED2):
                 mode = "randomized" if seed2 else "deterministic"
-                d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 1, seed2)
-                if not torch.equal(fused.flatten_ntt_fwd(ctx, acc, 1, seed2), d_p):
-                    fail(f"{tag} B={B}: flatten_ntt_fwd != plain ({mode})")
-                for t_mode in (0, 2):
+                d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 1, seed2, prune)
+                if not torch.equal(fused.flatten_ntt_fwd(ctx, acc, 1, seed2, prune), d_p):
+                    fail(f"{tag} B={B} prune={prune}: flatten_ntt_fwd != plain ({mode})")
+                for t_mode in t_modes:
                     carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
                     carry_p = carry_k.clone() if t_mode else None
-                    out_k = fused.mac_rotate_ntt_inv(ctx, d_p, bk.hat, bk.hat_shoup, 1, u, 0,
+                    out_k = fused.mac_rotate_ntt_inv(ctx, d_p, bk.hat, bk.hat_shoup, 1, u, prune,
                                                      t_mode, carry_k)
                     out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_p, bk.hat, bk.hat_shoup, 1, u,
-                                                           0, t_mode, carry_p)
+                                                           prune, t_mode, carry_p)
                     if not (torch.equal(out_k, out_p)
                             and (not t_mode or torch.equal(carry_k, carry_p))):
-                        fail(f"{tag} B={B}: mac_rotate_ntt_inv t_mode {t_mode} != plain ({mode})")
+                        fail(f"{tag} B={B} prune={prune}: mac_rotate_ntt_inv t_mode {t_mode} "
+                             f"!= plain ({mode})")
             sm = fused._sm_count(0)
-            print(f"[{phase}] {tag} B={B}: both kernels == plain bit for bit at step 1 "
-                  f"(deterministic and randomized, T-modes 0 and 2; plans "
-                  f"{fused.fwd_plan(B, L, m, 0, sm)}, {fused.mac_plan(B, L, m, 0, sm)})")
+            print(f"[{phase}] {tag} B={B} prune={prune}: both kernels == plain bit for bit at "
+                  f"step 1 (deterministic and randomized, T-modes {t_modes}; plans "
+                  f"{fused.fwd_plan(B, L, m, prune, sm)}, {fused.mac_plan(B, L, m, prune, sm)})")
 
     # The launch plans (gate tile, chunks, waves) follow B, so every other
     # batch a main path launches is held against plain too: mul's rounds of
@@ -453,22 +480,30 @@ def main() -> int:
             if not (lwe.a.max() < sk.params.r and lwe.a.min() >= 0):
                 fail(f"{gate}: output out of range")
 
-    def timed(tag, call, reps):
-        """One warm call and `reps` timed ones (host clock, synchronized),
-        with the launch counts set to 0 just before and read just after."""
+    def timed(tag, call, reps, warm=True):
+        """One warm call (unless the caller has just made one) and `reps`
+        timed ones (host clock, synchronized), with the launch counts set to
+        0 just before and read just after."""
         reset()
         times = []
-        for i in range(reps + 1):
+        for i in range(reps + int(warm)):
             torch.cuda.synchronize()
             t = time.perf_counter()
             out = call()
             torch.cuda.synchronize()
-            if i:
+            if i or not warm:
                 times.append(time.perf_counter() - t)
         launches = counts()
         if not all(launches):
             fail(f"[{tag}] a rotation kernel was not launched: {launches}")
-        return out, launches, sorted(times)[len(times) // 2], times
+        return out, launches, statistics.median(times), times
+
+    def timed_s(fn, *args):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t
 
     def drive(tag, params, ctx, bk, sk, lwe1, lwe2, y1, y2, reps):
         B = lwe1.a.shape[0]
@@ -554,15 +589,11 @@ def main() -> int:
     phase_done("5")
 
     # ---- 6. scheme 2 at the paper's k = 1, n = 1024 ---------------------------
-    n2, K2 = s2p.n, 2**s2p.k
+    n2 = s2p.n
     route = tbs._rotation_route(s2p, dev, 0, False)
     if route != "wmul":
         fail(f"[6] scheme 2 k=1 takes route {route}, expected wmul")
-    x = torch.randint(0, K2, (n2,), generator=g2)
-    y = torch.randint(0, K2, (n2,), generator=g2)
-    lx = B2.split_ciphertext(s2p, *S2.encrypt(sk2, g2, x))
-    ly = B2.split_ciphertext(s2p, *S2.encrypt(sk2, g2, y))
-    x, y = x.to(dev), y.to(dev)
+    print(f"[6] scheme 2 k=1 n=1024: rotation route {route}")
 
     def digits_noise(tag, sk, lwe, want):
         """Decrypt a digit batch against `want`; its max |phase noise|."""
@@ -576,59 +607,103 @@ def main() -> int:
             fail(f"[{tag}] phase noise {noise_} >= Dr/4 = {params.Dr // 4}")
         return noise_
 
-    (digit, cout), l_add, med, times = timed(
-        "6", lambda: B2.add_with_carry(s2p, ctx2, bk2, lx, ly), 3)
-    z = x + y
-    noise = max(digits_noise("6 add digit", sk2, digit, z % K2),
-                digits_noise("6 add carry", sk2, cout, z // K2))
-    if l_add != (4 * n2, 4 * n2):
-        fail(f"[6] add_with_carry launches {l_add}, expected 2n per call")
-    print(f"[6] add_with_carry on {n2} digit pairs ({2 * n2} lanes, route {route}): every "
-          f"digit and carry right, max |phase noise| {noise} (Dr = {s2p.Dr}); launches "
-          f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {l_add} over 4 calls, 2n = {2 * n2} "
-          f"a rotation round")
-    print(f"[6] {n2 / med:.1f} adds/s (median of 3: {[round(t, 4) for t in times]} s) "
-          f"on {card}")
-    Bm = 256
+    def twin_ops(tag, params, ctx, bk, sx, sy):
+        """add_with_carry and mul on a few pairs through the kernels equal to
+        the twin's output bit for bit, deterministic and randomized (add:
+        the seed words given; mul: each round its own split pair)."""
+        for seed2 in (None, SEED2):
+            t = time.perf_counter()
+            want = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2, plain=True)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t
+            got = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2)
+            for w, g in zip(want, got):
+                if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
+                    fail(f"[{tag}] add_with_carry kernels != twin, randomized={seed2 is not None}")
+            print(f"[{tag}] add_with_carry on {sx.a.shape[0]} pairs at k={params.k}, "
+                  f"n={params.n}, {'randomized (seed words given)' if seed2 else 'deterministic'}"
+                  f": kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+        for seeds in ((None,) * 3, tuple(prg.split_words(SEED2, 3))):
+            t = time.perf_counter()
+            want = B2._mul(params, ctx, bk, sx, sy, seeds, plain=True)
+            torch.cuda.synchronize()
+            twin_s = time.perf_counter() - t
+            got = B2._mul(params, ctx, bk, sx, sy, seeds)
+            for w, g in zip(want, got):
+                if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
+                    fail(f"[{tag}] mul kernels != twin, randomized={seeds[0] is not None}")
+            print(f"[{tag}] mul on {sx.a.shape[0]} pairs at k={params.k}, n={params.n}, "
+                  f"{'randomized (split seed words)' if seeds[0] else 'deterministic'}: "
+                  f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+
+    def s2_keys(tag, k, seed):
+        """Scheme 2 at k, n = 1024: context and keys made on the card after a
+        free-memory check; the key's build seconds."""
+        params = S2.Params.create(k)
+        ctx = S2.make_context(params, device=dev)
+        key_bytes = fused.fused_bkey_bytes(params)
+        free = torch.cuda.mem_get_info()[0]
+        if free < key_bytes + 8 * KEY_CHUNK_BYTES:
+            fail(f"[{tag}] k={k}: {free / 2**30:.1f} GiB free, the key needs "
+                 f"{key_bytes / 2**30:.1f} GiB and its build's chunks")
+        g = torch.Generator().manual_seed(seed)
+        sk = S2.PrivateKey.create(params, g, device=dev)
+        bk, s_key = timed_s(S2.BootstrapKey.create, ctx, sk, g)
+        print(f"[{tag}] k={k}: r={params.r} m={params.m} L={params.num_limbs} "
+              f"q_moduli={params.q_moduli}; key with Shoup companions made on the card in "
+              f"{s_key:.1f} s: {2 * bk.hat.numel() * 4 / 2**20:.0f} MiB "
+              f"({free / 2**30:.1f} GiB free before)")
+        return params, ctx, sk, bk, g
+
+    def s2_pairs(params, sk, g, pairs):
+        """`pairs` digit pairs encrypted and split, and their plaintexts."""
+        K = 2**params.k
+        x = torch.randint(0, K, (params.n,), generator=g)
+        y = torch.randint(0, K, (params.n,), generator=g)
+        lx = B2.split_ciphertext(params, *S2.encrypt(sk, g, x))
+        ly = B2.split_ciphertext(params, *S2.encrypt(sk, g, y))
+        return (T.LWE(lx.a[:pairs], lx.b[:pairs]), T.LWE(ly.a[:pairs], ly.b[:pairs]),
+                x[:pairs].to(dev), y[:pairs].to(dev))
+
+    def s2_add(tag, params, ctx, bk, sk, lx, ly, z, reps, rounds=1, warm=True, **kw):
+        """add_with_carry (or with `rounds` = 3, mul) timed over `reps` calls
+        after a warm one (`warm`=False: the caller made it): every digit
+        right, launches 2n a rotation round; returns the launch counts."""
+        K, n = 2**params.k, params.n
+        fn = B2.mul if rounds == 3 else B2.add_with_carry
+        (lo, hi), launches, med, times = timed(tag, lambda: fn(params, ctx, bk, lx, ly, **kw),
+                                               reps, warm)
+        what = "mul" if rounds == 3 else "add_with_carry"
+        noise_ = max(digits_noise(f"{tag} k={params.k} {what} low", sk, lo, z % K),
+                     digits_noise(f"{tag} k={params.k} {what} high", sk, hi, z // K))
+        calls = reps + int(warm)
+        if launches != (calls * rounds * n,) * 2:
+            fail(f"[{tag}] k={params.k} {what} launches {launches}, expected 2n a round")
+        pairs = lx.a.shape[0]
+        mode = ("randomized" if "seed_words" in kw
+                else ", ".join(f"{k_}={v}" for k_, v in kw.items()) or "exact")
+        print(f"[{tag}] k={params.k} {what} ({mode}) on {pairs} pairs: every "
+              f"{'low and high digit' if rounds == 3 else 'digit and carry'} right, max "
+              f"|phase noise| {noise_} (Dr = {params.Dr}); launches {launches} over "
+              f"{calls} calls, 2n = {2 * n} a rotation round")
+        print(f"[{tag}] k={params.k} {what} ({mode}): {pairs / med:.1f} a second (median of "
+              f"{reps}: {[round(t, 4) for t in times]} s) on {card}")
+        return launches
+
+    lx, ly, x, y = s2_pairs(s2p, sk2, g2, n2)
+    l_add = s2_add("6", s2p, ctx2, bk2, sk2, lx, ly, x + y, 2)
+    Bm = 256  # mul's rounds: 1024, 512 and 256 lanes
     mx, my = T.LWE(lx.a[:Bm], lx.b[:Bm]), T.LWE(ly.a[:Bm], ly.b[:Bm])
-    (lo, hi), l_mul, med, times = timed("6", lambda: B2.mul(s2p, ctx2, bk2, mx, my), 3)
-    prod = x[:Bm] * y[:Bm]
-    noise = max(digits_noise("6 mul low", sk2, lo, prod % K2),
-                digits_noise("6 mul high", sk2, hi, prod // K2))
-    if l_mul != (12 * n2, 12 * n2):
-        fail(f"[6] mul launches {l_mul}, expected 3 rounds of 2n per call")
-    print(f"[6] mul on {Bm} pairs (rounds of {4 * Bm}, {2 * Bm} and {Bm} lanes): every low "
-          f"and high digit right, max |phase noise| {noise}; launches = {l_mul} over 4 "
-          f"calls, 2n a round")
-    print(f"[6] {Bm / med:.1f} muls/s (median of 3: {[round(t, 4) for t in times]} s) "
-          f"on {card}")
+    s2_add("6", s2p, ctx2, bk2, sk2, mx, my, x[:Bm] * y[:Bm], 2, rounds=3)
     tr_s2 = trace("6", lambda: B2.add_with_carry(s2p, ctx2, bk2, lx, ly))
-    sx, sy = T.LWE(lx.a[:4], lx.b[:4]), T.LWE(ly.a[:4], ly.b[:4])
-    for seed2 in (None, SEED2):
-        t = time.perf_counter()
-        want = B2._add_with_carry(s2p, ctx2, bk2, sx, sy, None, seed2, plain=True)
-        torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t
-        got = B2._add_with_carry(s2p, ctx2, bk2, sx, sy, None, seed2)
-        for w, g in zip(want, got):
-            if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
-                fail(f"[6] add_with_carry kernels != twin, randomized={seed2 is not None}")
-        print(f"[6] add_with_carry on 4 pairs, "
-              f"{'randomized (seed words given)' if seed2 else 'deterministic'}: "
-              f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
-    # mul's three rounds, each with its own seed-word pair as mul splits them
-    for seeds in ((None,) * 3, tuple(prg.split_words(SEED2, 3))):
-        t = time.perf_counter()
-        want = B2._mul(s2p, ctx2, bk2, sx, sy, seeds, plain=True)
-        torch.cuda.synchronize()
-        twin_s = time.perf_counter() - t
-        got = B2._mul(s2p, ctx2, bk2, sx, sy, seeds)
-        for w, g in zip(want, got):
-            if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
-                fail(f"[6] mul kernels != twin, randomized={seeds[0] is not None}")
-        print(f"[6] mul on 4 pairs, "
-              f"{'randomized (split seed words)' if seeds[0] else 'deterministic'}: "
-              f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+    # whole ops against the twin at the toy n = 64 (k = 1; phase 12 at n = 1024)
+    toy = S2.Params.create(1, 64)
+    ctx_t = S2.make_context(toy, device=dev)
+    sk_t = S2.PrivateKey.create(toy, g2, device=dev)
+    bk_t = S2.BootstrapKey.create(ctx_t, sk_t, g2)
+    tx = B2.split_ciphertext(toy, *S2.encrypt(sk_t, g2, torch.arange(toy.n) % 2))
+    ty = B2.split_ciphertext(toy, *S2.encrypt(sk_t, g2, torch.arange(toy.n) // 2 % 2))
+    twin_ops("6", toy, ctx_t, bk_t, T.LWE(tx.a[:4], tx.b[:4]), T.LWE(ty.a[:4], ty.b[:4]))
     phase_done("6")
 
     # ---- 7. the rest of scheme 1's API at Params(512) ------------------------
@@ -717,18 +792,18 @@ def main() -> int:
         bits = torch.randint(0, 2, (circ.num_inputs, Bc), generator=g512)
         ins = encrypt_bits(p512, sk512, g512, bits)
         outs, launches, med, times = timed(
-            "8", lambda: C.evaluate(circ, p512, ctx512, bk512, ins), 3)
+            "8", lambda: C.evaluate(circ, p512, ctx512, bk512, ins), 1)
         want = circuit_right(name, sk512, circ, bits, outs)
-        if launches != (4 * levels * p512.n,) * 2:
+        if launches != (2 * levels * p512.n,) * 2:
             fail(f"[8] {name}: launches {launches}, expected 2n a level")
         circuit_right(name + " randomized", sk512, circ, bits,
                       C.evaluate(circ, p512, ctx512, bk512, ins, SEED2))
         batches8.update(level_batches(circ, Bc))
         print(f"[8] {name} on {Bc} instances: {levels} levels, {circ.num_bootstraps} "
               f"bootstraps an instance, every output bit right (deterministic and "
-              f"randomized); launches {launches} over 4 evaluations, {2 * p512.n} a level "
+              f"randomized); launches {launches} over 2 evaluations, {2 * p512.n} a level "
               f"({2 * levels * p512.n} an evaluation)")
-        print(f"[8] {name}: {med:.4f} s an evaluation (median of 3: "
+        print(f"[8] {name}: {med:.4f} s an evaluation (one timed after one warm: "
               f"{[round(t, 4) for t in times]} s), {Bc / med:.1f} {unit}/s on {card}")
         if unit == "additions":
             err = noise_dbg.noise_budget_report(sk512, T.EncryptedBit(T.LWE(
@@ -783,25 +858,25 @@ def main() -> int:
     ge_v = (xv >= yv).astype(np.int64)
     mul_rot = 3 + WI._mul_wide_adds(W9)
     rates = {}
-    # (name, call, rotations, the output as wide numbers, their values)
-    for name, call, rotations, numbers, want in (
+    # (name, call, rotations, the output as wide numbers, their values, timed calls)
+    for name, call, rotations, numbers, want, reps in (
             ("add_wide", lambda: WI.add_wide(s2p, ctx2, bk2, xs, ys), W9, lambda o: [o],
-             [xv + yv]),
+             [xv + yv], 2),
             ("sub_wide", lambda: WI.sub_wide(s2p, ctx2, bk2, xs, ys), W9,
-             lambda o: [o[0], [o[1]]], [(xv - yv) % top, ge_v]),
+             lambda o: [o[0], [o[1]]], [(xv - yv) % top, ge_v], 2),
             ("mul_wide", lambda: WI.mul_wide(s2p, ctx2, bk2, xs, ys), mul_rot, lambda o: [o],
-             [xv * yv]),
+             [xv * yv], 1),
             ("min_max_wide", lambda: WI.min_max_wide(s2p, ctx2, bk2, xs, ys), W9 + 1, list,
-             [np.minimum(xv, yv), np.maximum(xv, yv)])):
-        out, launches, med, times = timed("9", call, 3)
-        if launches != (4 * rotations * s2p.n,) * 2:
+             [np.minimum(xv, yv), np.maximum(xv, yv)], 2)):
+        out, launches, med, times = timed("9", call, reps)
+        if launches != ((reps + 1) * rotations * s2p.n,) * 2:
             fail(f"[9] {name}: launches {launches}, expected 2n a rotation")
         noise_ = max(wide_right(name, sk2, r, w) for r, w in zip(numbers(out), want))
         rates[name] = B9 / med
         print(f"[9] {name} on {B9} {W9}-digit pairs: every value right, max |phase noise| "
-              f"{noise_} (Dr = {s2p.Dr}); {rotations} rotations, launches {launches} over 4 "
-              f"calls; {med:.4f} s a call (median of 3: {[round(t, 4) for t in times]} s), "
-              f"{B9 / med:.1f} a second on {card}")
+              f"{noise_} (Dr = {s2p.Dr}); {rotations} rotations, launches {launches} over "
+              f"{reps + 1} calls; {med:.4f} s a call (median of {reps}: "
+              f"{[round(t, 4) for t in times]} s), {B9 / med:.1f} a second on {card}")
     print(f"[9] subs/s {rates['sub_wide']:.1f}, wide muls/s {rates['mul_wide']:.1f}, "
           f"min+max/s {rates['min_max_wide']:.1f} (k=1, n=1024, W={W9}) on {card}")
     reset()
@@ -828,15 +903,11 @@ def main() -> int:
     check_steps("9", "s2 k=1", s2p, ctx2, bk2,
                 (B9, 2 * B9, 2 * W9 * B9, W9 * W9 * B9, 4 * W9 * B9, 2 * W9 * W9 * B9,
                  4 * W9 * W9 * B9))
-    # whole ops through the kernels against plain, with pinned seed words:
-    # min_max_wide here, mul_wide (13 rotations) at the toy n = 64
+    # whole ops through the kernels against plain, with pinned seed words,
+    # at the toy n = 64 (phase 6's key): min_max_wide, mul_wide (13 rotations)
     x2, y2 = np.array([3, 1]), np.array([2, 3])
-    toy = S2.Params.create(1, 64)
-    ctx_t = S2.make_context(toy, device=dev)
-    sk_t = S2.PrivateKey.create(toy, g2, device=dev)
-    bk_t = S2.BootstrapKey.create(ctx_t, sk_t, g2)
     for name, params, ctx, bk, sk, fn, count, numbers, want in (
-            ("min_max_wide (n=1024)", s2p, ctx2, bk2, sk2, WI._min_max_wide, 3, list,
+            ("min_max_wide (n=64)", toy, ctx_t, bk_t, sk_t, WI._min_max_wide, 3, list,
              [np.minimum(x2, y2), np.maximum(x2, y2)]),
             ("mul_wide (n=64)", toy, ctx_t, bk_t, sk_t, WI._mul_wide,
              3 + WI._mul_wide_adds(2), lambda o: [o], [x2 * y2])):
@@ -859,43 +930,12 @@ def main() -> int:
     # ---- 10. scheme 2 at k = 2 and k = 4, n = 1024 ------------------------------
     del bk_t, ctx_t
     runs10 = {}
-    for k, pairs, seed in ((2, 1024, 12), (4, 256, 14)):
-        t = time.perf_counter()
-        pk = S2.Params.create(k)
-        ctx_k = S2.make_context(pk, device=dev)
-        key_bytes = 2 * pk.n * 2 * pk.num_digits * 2 * pk.num_limbs * pk.m * 4
-        free = torch.cuda.mem_get_info()[0]
-        if free < key_bytes + 8 * KEY_CHUNK_BYTES:
-            fail(f"[10] k={k}: {free / 2**30:.1f} GiB free, the key needs "
-                 f"{key_bytes / 2**30:.1f} GiB and its build's chunks")
-        g_k = torch.Generator().manual_seed(seed)
-        sk_k = S2.PrivateKey.create(pk, g_k, device=dev)
-        bk_k = S2.BootstrapKey.create(ctx_k, sk_k, g_k)
-        torch.cuda.synchronize()
-        print(f"[10] k={k}: r={pk.r} m={pk.m} L={pk.num_limbs} q_moduli={pk.q_moduli}; key "
-              f"with Shoup companions made on the card in {time.perf_counter() - t:.1f} s: "
-              f"{2 * bk_k.hat.numel() * 4 / 2**20:.0f} MiB ({free / 2**30:.1f} GiB free "
-              f"before)")
-        K = 2**k
-        x = torch.randint(0, K, (pk.n,), generator=g_k)
-        y = torch.randint(0, K, (pk.n,), generator=g_k)
-        lx = B2.split_ciphertext(pk, *S2.encrypt(sk_k, g_k, x))
-        ly = B2.split_ciphertext(pk, *S2.encrypt(sk_k, g_k, y))
-        lx, ly = T.LWE(lx.a[:pairs], lx.b[:pairs]), T.LWE(ly.a[:pairs], ly.b[:pairs])
-        z = (x + y)[:pairs].to(dev)
-        (digit, cout), l_k, med, times = timed(
-            "10", lambda: B2.add_with_carry(pk, ctx_k, bk_k, lx, ly), 3)
-        noise_ = max(digits_noise(f"10 k={k} add digit", sk_k, digit, z % K),
-                     digits_noise(f"10 k={k} add carry", sk_k, cout, z // K))
-        if l_k != (4 * pk.n,) * 2:
-            fail(f"[10] k={k} add_with_carry launches {l_k}, expected 2n per call")
-        print(f"[10] k={k} add_with_carry on {pairs} digit pairs ({2 * pairs} lanes): every "
-              f"digit and carry right, max |phase noise| {noise_} (Dr = {pk.Dr}); launches "
-              f"{l_k} over 4 calls")
-        print(f"[10] k={k}: {pairs / med:.1f} adds/s (median of 3: "
-              f"{[round(t, 4) for t in times]} s) on {card}")
+    for k, pairs, seed, steps_timed in ((2, 1024, 12, None), (4, 256, 14, 256)):
+        pk, ctx_k, sk_k, bk_k, g_k = s2_keys("10", k, seed)
+        lx, ly, x, y = s2_pairs(pk, sk_k, g_k, pairs)
+        l_k = s2_add("10", pk, ctx_k, bk_k, sk_k, lx, ly, x + y, 1)
         tr_k = trace("10", lambda: B2.add_with_carry(pk, ctx_k, bk_k, lx, ly))
-        top_k = K**2
+        top_k = 4**k
         xv_k, yv_k = rng.integers(0, top_k, 64), rng.integers(0, top_k, 64)
         reset()
         out = WI.add_wide(pk, ctx_k, bk_k, WI.encrypt_wide(sk_k, g_k, xv_k, 2),
@@ -905,10 +945,10 @@ def main() -> int:
               f"noise| {noise_}; launches {counts()}")
         tag = f"s2 k={k}"
         time_kernels(tag, pk, ctx_k, bk_k, 2 * pairs, 0, "sgfhe_tpu/ops/fused.py:604",
-                     phase="10")
+                     phase="10", reps=steps_timed)
         check_steps("10", tag, pk, ctx_k, bk_k, (128,))
-        runs10[tag] = (l_k, 4, tr_k, "w-multiply")
-        del bk_k, sk_k, ctx_k, lx, ly, digit, cout, out
+        runs10[tag] = (l_k, 2, tr_k, "w-multiply")
+        del bk_k, sk_k, ctx_k, lx, ly, out
         torch.cuda.empty_cache()
     print(f"[10] -Xptxas -v, flatten_ntt_fwd at L=4 randomized: "
           f"{ptxas_entry(ptxas_text, 'flatten_ntt_fwd_kernelILi4ELb1E')}")
@@ -916,13 +956,6 @@ def main() -> int:
     phase_done("10")
 
     # ---- 11. Params(1024) served end to end through the wire --------------------
-    def timed_s(fn, *args):
-        torch.cuda.synchronize()
-        t = time.perf_counter()
-        out = fn(*args)
-        torch.cuda.synchronize()
-        return out, time.perf_counter() - t
-
     def same(x, y):
         return all(torch.equal(getattr(x, f), getattr(y, f)) for f in ("a", "b"))
 
@@ -1025,6 +1058,58 @@ def main() -> int:
     print(f"[11] Params(64): {len(small)} frame types and the two scheme-2 frames round-trip "
           f"equal on the card (ciphertexts decrypt right); npz checkpoint of the key equal")
     phase_done("11")
+
+    # ---- 12/13. scheme 2 at k = 3 and k = 5, n = 1024 ---------------------------
+    # k = 3: Params(1024)'s kernel shape at 512 pairs (1024 lanes)
+    p3, ctx3, sk3, bk3, g3 = s2_keys("12", 3, 18)
+    lx, ly, x, y = s2_pairs(p3, sk3, g3, 512)
+    s2_add("12", p3, ctx3, bk3, sk3, lx, ly, x + y, 2)
+    trace("12", lambda: B2.add_with_carry(p3, ctx3, bk3, lx, ly))
+    s2_add("12", p3, ctx3, bk3, sk3, lx, ly, x + y, 1, seed_words=SEED2)
+    s2_add("12", p3, ctx3, bk3, sk3, lx, ly, x + y, 1, prune=2)
+    Bm = 128
+    mx, my = T.LWE(lx.a[:Bm], lx.b[:Bm]), T.LWE(ly.a[:Bm], ly.b[:Bm])
+    s2_add("12", p3, ctx3, bk3, sk3, mx, my, x[:Bm] * y[:Bm], 1, rounds=3)
+    check_steps("12", "s2 k=3", p3, ctx3, bk3, (1024, 4 * Bm, 2 * Bm, Bm))
+    check_steps("12", "s2 k=3", p3, ctx3, bk3, (1024,), prune=2)
+    twin_ops("12", p3, ctx3, bk3, T.LWE(lx.a[:4], lx.b[:4]), T.LWE(ly.a[:4], ly.b[:4]))
+    del bk3, lx, ly, mx, my
+    torch.cuda.empty_cache()
+    phase_done("12")
+
+    # k = 5: m = 32768, the kernels' MAX_M, and its 16 GiB key
+    p5, ctx5, sk5, bk5, g5 = s2_keys("13", 5, 20)
+    lx, ly, x, y = s2_pairs(p5, sk5, g5, 256)
+    # the traced call is the warm one: a call takes 12 s here
+    tr_k5 = trace("13", lambda: B2.add_with_carry(p5, ctx5, bk5, lx, ly))
+    l_k5 = s2_add("13", p5, ctx5, bk5, sk5, lx, ly, x + y, 2, warm=False)
+    sx, sy = T.LWE(lx.a[:32], lx.b[:32]), T.LWE(ly.a[:32], ly.b[:32])
+    s2_add("13", p5, ctx5, bk5, sk5, sx, sy, x[:32] + y[:32], 1, seed_words=SEED2)
+    s2_add("13", p5, ctx5, bk5, sk5, sx, sy, x[:32] + y[:32], 1, prune=1)
+    time_kernels("s2 k=5", p5, ctx5, bk5, 512, 0, "sgfhe_tpu/ops/fused.py:604", phase="13",
+                 reps=256)
+    check_steps("13", "s2 k=5", p5, ctx5, bk5, (64,))
+    check_steps("13", "s2 k=5", p5, ctx5, bk5, (64,), prune=1)
+    print(f"[13] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del bk5, lx, ly, sx, sy
+    torch.cuda.empty_cache()
+    phase_done("13")
+
+    # ---- 14. the single-card examples, in-process on the card --------------------
+    from sgfhe_tpu_torch.examples import adder, depth
+
+    reset()
+    t = time.perf_counter()
+    summed = adder.main(["8", "64", "4"])
+    soak = depth.main(["10", "64"])
+    torch.cuda.synchronize()
+    ex_s = time.perf_counter() - t
+    if not all(counts()):
+        fail(f"[14] the examples launched no rotation kernel: {counts()}")
+    print(f"[14] examples adder (8 bits, n=64, {len(summed['pairs'])} instances: every sum "
+          f"right) and depth ({soak['generations']} generations, n=64: every gate right, max "
+          f"|noise| {soak['max_err']}) in {ex_s:.1f} s; launches {counts()}")
+    phase_done("14")
     print(f"[total] build and phases {time.perf_counter() - t_start:.1f} s")
 
     # On the rows of the modes a main path runs: launches, the kernel's count
@@ -1032,8 +1117,8 @@ def main() -> int:
     # trace_ms, its device ms per launch in the traced call. The other modes
     # launched 0 times there.
     runs = {"n=64": (l64, 6, tr64, "carry"), "n=512": (l512, 3, tr512, "w-multiply"),
-            "s2 k=1": (l_add, 4, tr_s2, "w-multiply"), **runs10,
-            "n=1024": (l1k, 4, tr1k, "w-multiply")}
+            "s2 k=1": (l_add, 3, tr_s2, "w-multiply"), **runs10,
+            "n=1024": (l1k, 4, tr1k, "w-multiply"), "s2 k=5": (l_k5, 2, tr_k5, "w-multiply")}
     for row in table:
         tag = row["name"][row["name"].index("(") + 1:-1]
         counts_, calls, tr, mac_mode = runs[tag]

@@ -16,8 +16,14 @@ add_with_carry, apply_lut, refresh, mul; `models.wideint`: wide-integer
 arithmetic over its digits), the boolean-circuit layer (`circuit`:
 `Circuit`, `evaluate_circuit`), the noise debugger (`debug.noise`), and
 the wire frames and npz checkpoints of keys and ciphertexts (`serialize`,
-byte for byte the JAX package's, over the C++ codec of `native`). See
-ROADMAP.md for what is still to port.
+byte for byte the JAX package's, over the C++ codec of `native`), and the
+tooling: `prewarm` (cold-start priming), `utils.progress` (stage
+narration, SGFHE_PROGRESS), `utils.profiling` (`timeit`, `trace`,
+`op_cost`), the golden model `refimpl.golden`, and the single-card
+examples (`examples`: adder, depth, errors, scheme2_demo, scheme2_add).
+Scheme 2 runs on the card at every k of the paper, 1 to 5, at n = 1024.
+What is still to port is the multi-device layer (`parallel/`); see
+ROADMAP.md.
 """
 
 from .models.params import Params
@@ -49,6 +55,7 @@ from .models import bootstrap2 as Scheme2Boot  # noqa: F401
 from . import circuit  # noqa: F401  (boolean-circuit evaluation layer)
 from .circuit import Circuit, evaluate as evaluate_circuit
 from . import serialize  # noqa: F401  (wire frames, checkpoints)
+from .prewarm import prewarm
 
 __all__ = [
     "Params", "SchemeContext", "make_context",
@@ -59,5 +66,5 @@ __all__ = [
     "decrypt", "decrypt_bit", "split_ciphertext", "deterministic_expand",
     "bootstrap", "bootstrap_batch", "pack_encrypted_bits",
     "Scheme2", "Scheme2Boot",
-    "circuit", "Circuit", "evaluate_circuit", "serialize",
+    "circuit", "Circuit", "evaluate_circuit", "serialize", "prewarm",
 ]

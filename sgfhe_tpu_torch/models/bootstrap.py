@@ -76,6 +76,7 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
         )
     route = _rotation_route(params, a_acc.device, prune, plain)
     if route != "plain":
+        fused_mod.check_envelope(params)
         return fused_mod.blind_rotate_steps(
             ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
             carry=route == "carry",

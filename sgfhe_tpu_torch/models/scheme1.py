@@ -29,6 +29,7 @@ from ..ops import prg
 from ..ops import rns as rns_mod
 from ..utils import bits as bits_mod
 from ..utils import prng
+from ..utils import progress
 from .params import Params
 
 
@@ -67,6 +68,10 @@ class SchemeContext:
 
 def make_context(params: Params, device=None) -> SchemeContext:
     dev = resolve_device(device)
+    progress.log(
+        f"make_context n={params.n}: building NTT/RNS tables "
+        f"(m={params.m}, L={params.num_limbs}) on {_where(dev)}"
+    )
     plan_Q = ntt_mod.build_plan(params.moduli, params.m, dev)
     plan_q = ntt_mod.build_plan(params.q_factors, params.n, dev)
     rctx = rns_mod.build_context(params.moduli).device_context(dev)
@@ -256,6 +261,20 @@ class BootstrapKey:
         return cls(params, *_seeded_key(params, ctx, seed, b_hat, 1), seed=seed)
 
 
+def _where(dev) -> str:
+    """Where a stage runs, for the progress lines."""
+    return "the card" if torch.device(dev).type == "cuda" else "the host CPU"
+
+
+def _key_stage(params, stream: int, what: str):
+    """The progress stage of a bootstrap-key builder."""
+    name = "BootstrapKey" if stream == 1 else f"Scheme2 BootstrapKey k={params.k}"
+    mb = params.n * 2 * params.num_digits * 2 * params.num_limbs * params.m * 4 >> 20
+    chunks = -(-params.n // _key_chunk(params))
+    return progress.stage(f"{name} {what} n={params.n} ({mb} MiB hat and {mb} MiB "
+                          f"companions, {chunks} chunks)")
+
+
 def _shoup_companion(hat: torch.Tensor, p: torch.Tensor) -> torch.Tensor:
     """floor(hat * 2^32 / p) per limb; hat (..., L, m) canonical int64."""
     return (hat << 32) // p
@@ -334,14 +353,17 @@ def _bootstrap_key(params, ctx, s_bits, generator, noise: int, seed: np.ndarray,
     s_rns, s_hat = _key_rns(ctx, s_bits, m, L)
     hat = torch.empty((n, rows, 2, L, m), dtype=torch.int32, device=dev)
     shoup = torch.empty_like(hat)
-    for i in range(0, n, chunk):
-        c = slice(i, min(n, i + chunk))
-        nc = c.stop - c.start
-        a = _a_column(params, seed, c.start, c.stop, stream, dev)
-        e = _draw(generator, -noise, noise + 1, (nc, rows, 1, m), dev)
-        h = _gsw_hat(params, ctx, s_rns, s_hat, s_bits[c], a, e)
-        hat[c] = h.to(torch.int32)
-        shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+    with _key_stage(params, stream, f"create (GSW rows and companions on {_where(dev)})"):
+        for i in range(0, n, chunk):
+            c = slice(i, min(n, i + chunk))
+            nc = c.stop - c.start
+            a = _a_column(params, seed, c.start, c.stop, stream, dev)
+            e = _draw(generator, -noise, noise + 1, (nc, rows, 1, m), dev)
+            h = _gsw_hat(params, ctx, s_rns, s_hat, s_bits[c], a, e)
+            hat[c] = h.to(torch.int32)
+            shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return hat, shoup
 
 
@@ -356,12 +378,16 @@ def _seeded_key(params, ctx, seed: np.ndarray, b_hat: torch.Tensor, stream: int)
     chunk = _key_chunk(params)
     hat = torch.empty((n, rows, 2, L, m), dtype=torch.int32, device=dev)
     shoup = torch.empty_like(hat)
-    for i in range(0, n, chunk):
-        c = slice(i, min(n, i + chunk))
-        a_hat = ntt_mod.ntt_fwd(ctx.plan_Q, _a_column(params, seed, c.start, c.stop, stream, dev))
-        h = torch.stack([a_hat, mm.u32(b_hat[c].to(dev))], dim=2)
-        hat[c] = h.to(torch.int32)
-        shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+    with _key_stage(params, stream, f"from_seeded (a-column and companions on {_where(dev)})"):
+        for i in range(0, n, chunk):
+            c = slice(i, min(n, i + chunk))
+            a_hat = ntt_mod.ntt_fwd(ctx.plan_Q,
+                                    _a_column(params, seed, c.start, c.stop, stream, dev))
+            h = torch.stack([a_hat, mm.u32(b_hat[c].to(dev))], dim=2)
+            hat[c] = h.to(torch.int32)
+            shoup[c] = mm.bits32(_shoup_companion(h, ctx.plan_Q.p))
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
     return hat, shoup
 
 

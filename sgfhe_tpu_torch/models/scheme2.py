@@ -40,6 +40,7 @@ from ..ops import poly as pol
 from ..ops import rns as rns_mod
 from ..utils import primes as pr
 from ..utils import prng
+from ..utils import progress
 from . import scheme1 as s1
 
 
@@ -144,6 +145,10 @@ class Scheme2Context:
 
 def make_context(params: Params, device=None) -> Scheme2Context:
     dev = s1.resolve_device(device)
+    progress.log(
+        f"Scheme2 make_context k={params.k} n={params.n}: building NTT/RNS tables "
+        f"(m={params.m}, L={params.num_limbs}) on {s1._where(dev)}"
+    )
     return Scheme2Context(
         plan_Q=ntt_mod.build_plan(params.moduli, params.m, dev),
         plan_q=ntt_mod.build_plan(params.q_moduli, params.n, dev),

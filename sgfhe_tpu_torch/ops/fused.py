@@ -177,9 +177,8 @@ def flatten_ntt_fwd_i64(ctx, a_acc, b_acc, seed2, step: int, prune: int = 0):
         da = rns_mod.flatten(rns, a_acc, prune)
         db = rns_mod.flatten(rns, b_acc, prune)
     else:
-        mods = ctx.fused.moduli
-        da = rns_mod.flatten_random(rns, a_acc, mods, seed2, step, op=0, prune=prune)
-        db = rns_mod.flatten_random(rns, b_acc, mods, seed2, step, op=1, prune=prune)
+        da, db = rns_mod.flatten_random(rns, torch.stack([a_acc, b_acc]), ctx.fused.moduli,
+                                        seed2, step, op=(0, 1), prune=prune)
     return ntt_mod.ntt_fwd(ctx.plan_Q, torch.cat([da, db], dim=-3))
 
 
@@ -286,13 +285,24 @@ def mac_smem(gates: int, lk: int, m: int, chunk: int) -> int:
     return 4 * (gates * smem_pitch(m) + ring)
 
 
-def _check_envelope(m: int) -> None:
+def _check_envelope(m: int, ring: str = "") -> None:
     if m > MAX_M:
         raise ValueError(
-            f"ring degree m = {m} exceeds the rotation kernels' envelope "
-            f"m <= {MAX_M} (n <= {MAX_M // 8}): each block holds a whole "
-            f"length-m NTT in at most {SMEM_BLOCK:,} bytes of shared memory"
+            f"ring degree m = {m}{ring} exceeds the rotation kernels' envelope "
+            f"m <= {MAX_M}: each block holds a whole length-m NTT in at most "
+            f"{SMEM_BLOCK:,} bytes of shared memory"
         )
+
+
+def check_envelope(params) -> None:
+    """Raise ValueError when params' ring is beyond the kernels, naming the
+    scheme's own ring degree: m = 8n in scheme 1, m = 2^(k+5)·sqrt(n) in
+    scheme 2."""
+    if hasattr(params, "k"):
+        ring = f" (scheme 2 at k = {params.k}, n = {params.n}: m = 2^(k+5)·sqrt(n))"
+    else:
+        ring = f" (scheme 1 at n = {params.n}: m = 8n)"
+    _check_envelope(params.m, ring)
 
 
 @dataclasses.dataclass(frozen=True)

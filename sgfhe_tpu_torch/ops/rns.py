@@ -142,16 +142,17 @@ def mask_window_bits(p: int) -> int:
     return (3 * s - 1).bit_length()
 
 
-def mask_words(seed2, c0, step: int, op: int, L: int) -> list:
+def mask_words(seed2, c0, step: int, ops, L: int) -> list:
     """The L uint32 flatten-mask words for counters (c0; step, op) under key
-    seed2 = (seed_lo, seed_hi): one Threefry block per digit pair."""
+    seed2 = (seed_lo, seed_hi): one Threefry block per digit pair, all
+    pairs of all `ops` in one call. Each word is (len(ops), *c0.shape)."""
     num_pairs = (L + 1) // 2
-    words = []
-    for pair in range(num_pairs):
-        c1 = prg.mask_stream_c1(step, op, pair, num_pairs)
-        y0, y1 = prg.threefry2x32(seed2[0], seed2[1], c0, c1)
-        words += [y0, y1]
-    return words[:L]
+    c1 = torch.tensor([prg.mask_stream_c1(step, op, pair, num_pairs)
+                       for op in ops for pair in range(num_pairs)],
+                      dtype=torch.int64, device=c0.device)
+    y0, y1 = prg.threefry2x32(seed2[0], seed2[1], c0,
+                              c1.reshape((len(ops), num_pairs) + (1,) * c0.dim()))
+    return [w for pair in range(num_pairs) for w in (y0[:, pair], y1[:, pair])][:L]
 
 
 def flatten_random(
@@ -160,7 +161,7 @@ def flatten_random(
     moduli: tuple[int, ...],
     seed2,
     step: int,
-    op: int = 0,
+    op=0,
     prune: int = 0,
 ) -> torch.Tensor:
     """Randomized gadget decomposition: mask each kept digit with an exactly
@@ -168,10 +169,15 @@ def flatten_random(
     (ops/prg.py), flatten the unmasked remainder, add the masks back.
     seed2 = (seed_lo, seed_hi) are Python ints; the per-element counter is
     gate * m + coeff with gate the row-major index over the leading batch
-    axes."""
+    axes. `op` is the operand's index in the stream; a tuple of them takes
+    one operand each along x's first axis (the gate index then runs over
+    the axes after it), so that one Threefry call draws every operand's
+    masks."""
     L = ctx.p.shape[0]
     m = x.shape[-1]
-    batch = x.shape[:-2]
+    stacked = isinstance(op, (tuple, list))
+    ops = tuple(op) if stacked else (op,)
+    batch = x.shape[1:-2] if stacked else x.shape[:-2]
     ng = 1
     for b in batch:
         ng *= int(b)
@@ -179,17 +185,20 @@ def flatten_random(
     g = torch.arange(ng, dtype=torch.int64, device=dev).reshape(batch + (1,))
     c0 = (g * m + torch.arange(m, dtype=torch.int64, device=dev)) & MASK32
     seed2 = (int(seed2[0]) & MASK32, int(seed2[1]) & MASK32)
-    words = mask_words(seed2, c0, step, op, L)
+    words = mask_words(seed2, c0, step, ops, L)
+    if not stacked:
+        words = [w[0] for w in words]
+    off_mod = torch.tensor(
+        [[(1 << mask_window_bits(p)) % q for q in moduli] for p in moduli],
+        dtype=torch.int64, device=dev,
+    )
     masks = []
     rand_x = x
     for i in range(prune, L):
         k_bits = mask_window_bits(moduli[i])
         v = words[i] & ((1 << (k_bits + 1)) - 1)
         e = mm.mod_u32(v[..., None, :], ctx.p)
-        off_mod = torch.tensor(
-            [(1 << k_bits) % q for q in moduli], dtype=torch.int64, device=dev
-        ).reshape(L, 1)
-        e = mm.submod(e, off_mod, ctx.p)
+        e = mm.submod(e, off_mod[i].reshape(L, 1), ctx.p)
         masks.append(e)
         contrib = mm.shoup_mul(e, ctx.w_val[i], ctx.w_shoup[i], ctx.p)
         rand_x = mm.submod(rand_x, contrib, ctx.p)

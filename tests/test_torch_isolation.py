@@ -81,7 +81,10 @@ def test_new_modules_are_covered():
     """The scan above reaches every module of the port, this slice's too."""
     names = {_module_name(f) for f in FILES}
     for mod in ("models.scheme2", "models.bootstrap2", "utils.bits", "interop", "circuit",
-                "models.wideint", "debug.noise", "native", "serialize"):
+                "models.wideint", "debug.noise", "native", "serialize", "utils.progress",
+                "utils.profiling", "prewarm", "refimpl.golden", "examples", "examples.adder",
+                "examples.depth", "examples.errors", "examples.scheme2_demo",
+                "examples.scheme2_add"):
         assert f"sgfhe_tpu_torch.{mod}" in names
 
 

@@ -127,3 +127,17 @@ def test_negacyclic_mul_bits_equals_reference(n):
         np.array([int(v) % params.r for v in want]), _np(g[0])
     )
     assert T.Params.create(n).q_factors == params.q_factors
+
+
+def test_flatten_random_stacked_operands_equal_reference(rns64):
+    """Both operands of a rotation step in one call (op=(0, 1), the
+    twin's form) equal the JAX package's two calls, each with its op."""
+    params, ref, got, x = rns64
+    lo, hi = rrns.seed_words(jax.random.key(14))
+    x2 = np.stack([x, x[::-1].copy()])
+    g = trns.flatten_random(got, torch.as_tensor(x2), params.moduli, (int(lo), int(hi)), 5,
+                            op=(0, 1))
+    for op in (0, 1):
+        r = rrns.flatten_random(ref, jnp.asarray(x2[op], jnp.uint32), params.moduli, (lo, hi),
+                                5, op=op)
+        _eq(r, g[op])
