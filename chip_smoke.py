@@ -92,6 +92,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
   14. the single-card examples in-process on the card: adder (8 bits,
      n = 64, 4 instances) and depth (10 generations, n = 64), each checking
      its own results, launches counted.
+  15. the multi-device layer (parallel/) at world size 1 over NCCL: (a)
+     bootstrap_batch_sharded on the (1, 1) mesh, phase 11's 1024 gates at
+     Params(1024) through the kernels, == bootstrap_batch bit for bit,
+     truth tables, launches == 2n per call, gates/s beside phase 11's;
+     (b) bootstrap_batch_tp at (m1, m2) = (64, 128) on 8 gates through all
+     1024 steps, exact and randomized, == the kernel route bit for bit,
+     seconds of bkey_to_dist and of each call, peak memory; (c) the
+     scheme2_dist example at k = 4 (after a free-memory check), its
+     add_with_carry_dist == the kernel route's add_with_carry at prune 0
+     and 1, every digit and carry right; (d) the scaling example at 256
+     gates, n = 64.
 Each phase prints its seconds, and the build and phases their total. The
 line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -505,6 +516,8 @@ def main() -> int:
         torch.cuda.synchronize()
         return out, time.perf_counter() - t
 
+    rates = {}  # gates/s of each phase's drive
+
     def drive(tag, params, ctx, bk, sk, lwe1, lwe2, y1, y2, reps):
         B = lwe1.a.shape[0]
 
@@ -518,6 +531,7 @@ def main() -> int:
             fail(f"{tag}: launches {launches}, expected 2n per call = {want} each")
         print(f"[{tag}] {B} gates, truth tables AND/OR/XOR hold; launches "
               f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {launches} over {reps + 1} calls")
+        rates[tag] = B / med
         print(f"[{tag}] {B / med:.1f} gates/s (median of {reps}: "
               f"{[round(t, 4) for t in times]} s) on {card}")
         return out, launches, trace(tag, call)
@@ -1007,6 +1021,8 @@ def main() -> int:
                  phase="11")
     check_steps("11", "n=1024", p1k, ctx1k, bk_w, (p1k.n,))
     print(f"[11] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    # phase 15 serves the same key and gates through the multi-device layer
+    p11 = dict(bk=bk_w, sk=sk_w, out=out1k, lwe1=lwe1, lwe2=lwe2, y1=y1, y2=y2)
     del bk_w, out1k, rnd1k
     torch.cuda.empty_cache()
     # the phase-6 scheme-2 key through its seeded frame (stream 2)
@@ -1110,6 +1126,96 @@ def main() -> int:
           f"right) and depth ({soak['generations']} generations, n=64: every gate right, max "
           f"|noise| {soak['max_err']}) in {ex_s:.1f} s; launches {counts()}")
     phase_done("14")
+
+    # ---- 15. the multi-device layer (parallel/) at world size 1 over NCCL -------
+    import torch.distributed as dist
+    from sgfhe_tpu_torch.examples import scaling, scheme2_dist
+    from sgfhe_tpu_torch.parallel import distributed as PD
+    from sgfhe_tpu_torch.parallel import mesh as PM
+    from sgfhe_tpu_torch.parallel import rotate_dist as RD
+    from sgfhe_tpu_torch.parallel import sharded as PS
+
+    PD.init_world(dev)
+    if dist.get_backend() != "nccl" or dist.get_world_size() != 1:
+        fail(f"[15] process group {dist.get_backend()} of {dist.get_world_size()} ranks")
+    print(f"[15] world size {dist.get_world_size()} over {dist.get_backend()}")
+    mesh = PM.make_mesh(dp=1, tp=1)
+    bk, sk_w, lwe1, lwe2 = p11["bk"], p11["sk"], p11["lwe1"], p11["lwe2"]
+    # (a) data-parallel: Params(1024)'s 1024 gates through bootstrap_internal's kernels
+    out_dp, launches, med, times = timed(
+        "15a", lambda: PS.bootstrap_batch_sharded(p1k, ctx1k, bk, lwe1, lwe2, mesh), 2)
+    want = p1k.n * 3
+    if launches != (want, want):
+        fail(f"[15a] launches {launches}, expected 2n per call = {want} each")
+    if not all(same(x, y) for x, y in zip(out_dp, p11["out"])):
+        fail("[15a] bootstrap_batch_sharded != bootstrap_batch")
+    truth_tables(sk_w, out_dp, p11["y1"], p11["y2"])
+    print(f"[15a] bootstrap_batch_sharded on the (1, 1) mesh, {p1k.n} gates at Params(1024): "
+          f"== bootstrap_batch bit for bit, truth tables AND/OR/XOR hold; launches "
+          f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {launches} over 3 calls")
+    print(f"[15a] {p1k.n / med:.1f} gates/s (median of 2: {[round(t, 4) for t in times]} s), "
+          f"phase 11's bootstrap_batch {rates['11']:.1f} gates/s, on {card}")
+    # (b) tensor-parallel: the four-step rotation through all n steps, 8 gates
+    torch.cuda.reset_peak_memory_stats()
+    rplan = RD.build_rotation_plan(p1k.moduli, 64, 128, dev)
+    hat_d, s_conv = timed_s(RD.bkey_to_dist, ctx1k, rplan, bk.hat)
+    print(f"[15b] bkey_to_dist at (m1, m2) = (64, 128): {s_conv:.2f} s for the "
+          f"{2 * bk.hat.numel() * 4 / 2**20:.0f} MiB key (hat and Shoup companions), "
+          f"{hat_d.numel() * 4 / 2**20:.0f} MiB in the dist order")
+    g8 = [T.LWE(w.a[:8], w.b[:8]) for w in (lwe1, lwe2)]
+    for mode, kw in (("exact", {}), ("randomized", dict(seed_words=SEED2, epoch=0))):
+        want = T.bootstrap_batch(p1k, ctx1k, bk.hat, bk.hat_shoup, *g8, **kw)
+        got, s_tp = timed_s(lambda: RD.bootstrap_batch_tp(p1k, ctx1k, rplan, mesh, hat_d,
+                                                          *g8, **kw))
+        if not all(same(x, y) for x, y in zip(got, want)):
+            fail(f"[15b] {mode}: bootstrap_batch_tp != the kernel route's bootstrap_batch")
+        truth_tables(sk_w, got, p11["y1"][:8], p11["y2"][:8])
+        print(f"[15b] {mode}: bootstrap_batch_tp on 8 gates through all {p1k.n} steps in "
+              f"{s_tp:.2f} s ({s_tp / p1k.n * 1e3:.2f} ms a step) on {card}; == the kernel "
+              f"route's bootstrap_batch bit for bit, truth tables hold")
+    print(f"[15b] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del hat_d, p11, bk, out_dp
+    torch.cuda.empty_cache()
+    # (c) scheme 2 at k = 4 through add_with_carry_dist (the example at its defaults)
+    p4 = S2.Params.create(4)
+    # the key with its Shoup companions, and its dist-order copy without them
+    need = 3 * fused.fused_bkey_bytes(p4) // 2 + 8 * KEY_CHUNK_BYTES
+    free = torch.cuda.mem_get_info()[0]
+    if free < need:
+        fail(f"[15c] {free / 2**30:.1f} GiB free, the k=4 key and its dist-order copy need "
+             f"{need / 2**30:.1f} GiB")
+    ex, s_ex = timed_s(scheme2_dist.main, ["4", "2", "0"])
+    print(f"[15c] scheme2_dist 4 2 0 in {s_ex:.1f} s: key {ex['key_s']:.1f} s, bkey_to_dist "
+          f"{ex['convert_s']:.1f} s, add_with_carry_dist {ex['add_s']:.1f} s "
+          f"({ex['add_s'] / p4.n * 1e3:.2f} ms a step, 4 lanes) on {card}")
+    for prune in (0, 1):
+        if prune:
+            ex["key_dist"] = None
+            torch.cuda.empty_cache()
+            key_p = RD.bkey_to_dist(ex["ctx"], ex["rplan"], ex["bkey"].hat, prune)
+            got, s_p = timed_s(lambda: RD.add_with_carry_dist(
+                ex["params"], ex["ctx"], ex["rplan"], mesh, key_p, ex["lx"], ex["ly"],
+                prune=prune))
+        else:
+            got, s_p = (ex["digit"], ex["carry"]), ex["add_s"]
+        want = B2.add_with_carry(ex["params"], ex["ctx"], ex["bkey"], ex["lx"], ex["ly"],
+                                 prune=prune)
+        if not all(same(x, y) for x, y in zip(got, want)):
+            fail(f"[15c] prune={prune}: add_with_carry_dist != the kernel route's add_with_carry")
+        z = ex["z"]
+        noise_ = max(digits_noise("15c digit", ex["sk"], got[0], z % 16),
+                     digits_noise("15c carry", ex["sk"], got[1], z // 16))
+        print(f"[15c] k=4 prune={prune}: add_with_carry_dist ({s_p:.1f} s) == the kernel "
+              f"route's add_with_carry bit for bit on {z.numel()} pairs; every digit and "
+              f"carry right, max |phase noise| {noise_}")
+    print(f"[15c] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    del ex, key_p, got, want
+    torch.cuda.empty_cache()
+    # (d) the scaling harness at its defaults, on the world of one card
+    rows = scaling.main(["256", "64"])
+    print(f"[15d] scaling 256 64: (devices, gates/s, efficiency) = {rows} on {card}")
+    dist.destroy_process_group()
+    phase_done("15")
     print(f"[total] build and phases {time.perf_counter() - t_start:.1f} s")
 
     # On the rows of the modes a main path runs: launches, the kernel's count

@@ -20,10 +20,11 @@ byte for byte the JAX package's, over the C++ codec of `native`), and the
 tooling: `prewarm` (cold-start priming), `utils.progress` (stage
 narration, SGFHE_PROGRESS), `utils.profiling` (`timeit`, `trace`,
 `op_cost`), the golden model `refimpl.golden`, and the single-card
-examples (`examples`: adder, depth, errors, scheme2_demo, scheme2_add).
-Scheme 2 runs on the card at every k of the paper, 1 to 5, at n = 1024.
-What is still to port is the multi-device layer (`parallel/`); see
-ROADMAP.md.
+examples (`examples`: adder, depth, errors, scheme2_demo, scheme2_add,
+scaling, scheme2_dist), and the multi-device layer (`parallel`: meshes,
+the process group, sharded gate batches and packs, and the
+tensor-parallel rotation, on torch.distributed). Scheme 2 runs on the
+card at every k of the paper, 1 to 5, at n = 1024.
 """
 
 from .models.params import Params

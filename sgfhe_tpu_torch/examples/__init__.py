@@ -1,14 +1,18 @@
-"""Single-card examples, the port's counterparts of the JAX package's
-examples/ scripts, with their positional arguments and defaults:
+"""The examples, the port's counterparts of the JAX package's examples/
+scripts, with their positional arguments and defaults:
 
     python -m sgfhe_tpu_torch.examples.adder [nbits=8] [n=64] [instances=4]
     python -m sgfhe_tpu_torch.examples.depth [generations=100] [n=64] [prune=0]
     python -m sgfhe_tpu_torch.examples.errors [n=64] [trials=4]
     python -m sgfhe_tpu_torch.examples.scheme2_demo [k=1] [n=1024] [--bkey]
     python -m sgfhe_tpu_torch.examples.scheme2_add [k=1] [batch=64] [n=1024] [prune=0]
+    python -m sgfhe_tpu_torch.examples.scaling [batch=256] [n=64]
+    python -m sgfhe_tpu_torch.examples.scheme2_dist [k=4] [batch=2] [prune=0] [n=1024]
 
 Each runs on the card, or on the CPU with `--device cpu`, checks its
-results and raises SystemExit on a wrong one. Each `main(argv)` takes the
+results and raises SystemExit on a wrong one. The last two run on the
+multi-device layer (parallel/) over the torch.distributed world: one rank
+over NCCL on a card, or the ranks torchrun starts. Each `main(argv)` takes the
 command-line words as a list, so that code can call it in-process.
 """
 

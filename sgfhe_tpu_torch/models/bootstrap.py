@@ -26,6 +26,8 @@ same rotation, then n shortened external products in plain torch.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from ..ops import fused as fused_mod
@@ -61,12 +63,8 @@ def _external_step(params: Params, ctx: SchemeContext, a_acc, b_acc, ck_hat,
     return a, b
 
 
-def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
-                 seed2=None, prune: int = 0, *, plain: bool = False):
-    """The n-step rotation: (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G) for
-    k = 0..n-1, batched. ua: (B, n) exponents mod 2m; a_acc, b_acc:
-    (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32."""
-    n = params.n
+def check_prune(params: Params, prune: int) -> None:
+    """Refuse a digit pruning whose admitted noise reaches the Dr/16 guard."""
     if prune:
         bound = prune_error_bound(params, prune)
         assert bound < params.Dr / 16, (
@@ -74,6 +72,15 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
             f"{bound:.3g}, too close to the Dr/4 = {params.Dr // 4} decision "
             f"budget (guard: < Dr/16 = {params.Dr / 16:.3g})"
         )
+
+
+def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
+                 seed2=None, prune: int = 0, *, plain: bool = False):
+    """The n-step rotation: (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G) for
+    k = 0..n-1, batched. ua: (B, n) exponents mod 2m; a_acc, b_acc:
+    (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32."""
+    n = params.n
+    check_prune(params, prune)
     route = _rotation_route(params, a_acc.device, prune, plain)
     if route != "plain":
         fused_mod.check_envelope(params)
@@ -91,11 +98,14 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
 
 def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
                        a1, b1, a2, b2, seed2=None, prune: int = 0, *,
-                       plain: bool = False):
+                       plain: bool = False, rotate=None):
     """Blind rotation + gate extraction (reference src/fhe.jl:559-595),
     batched. a1, a2: (B, n); b1, b2: (B,); all mod r. seed2: None or the two
-    Threefry key words, used as given. Returns three LWEs over Q as
-    ((B, L, n), (B, L)) pairs: AND, OR, XOR."""
+    Threefry key words, used as given. rotate: None (`blind_rotate` on
+    bkey_hat/bkey_shoup) or another rotation, called as
+    rotate(ua, a_acc, b_acc, seed2=, prune=) (the tensor-parallel one of
+    parallel/rotate_dist.py, which brings its own key). Returns three LWEs
+    over Q as ((B, L, n), (B, L)) pairs: AND, OR, XOR."""
     n, m, L = params.n, params.m, params.num_limbs
     mask = params.mask_r
     plan = ctx.plan_Q
@@ -108,10 +118,10 @@ def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, tpoly_hat_b, shift))
     a_acc = torch.zeros((batch, L, m), dtype=torch.int64, device=b_acc.device)
 
-    a_acc, b_acc = blind_rotate(
-        params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
-        plain=plain,
-    )
+    if rotate is None:
+        rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
+                                   plain=plain)
+    a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
 
     i_and = 3 * m // 4
     i_or = m // 4
@@ -174,27 +184,38 @@ def bootstrap(params, ctx, bkey, enc_bit1: EncryptedBit, enc_bit2: EncryptedBit,
 
 def pack_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
                   enc_bits: LWE, boot_seed2=None, pack_seed2=None, *,
-                  plain: bool = False) -> RLWE:
+                  plain: bool = False, keys: slice = slice(None), gather=None,
+                  reduce=None) -> RLWE:
     """n LWE bits (n, n)/(n,) -> one RLWE over R_{m,r} (reference
     src/fhe.jl:660-696). The n trivial-input bootstraps run as one batch of
     n gates through the rotation; the n shortened external products are
     plain torch. boot_seed2 / pack_seed2: None or the two Threefry key
     words of the bootstraps' and of the pack stage's mask streams, used as
-    given."""
+    given.
+
+    keys, gather and reduce split the work over ranks
+    (parallel/sharded.pack_encrypted_bits_sharded, deterministic mode):
+    this rank bootstraps the bits `keys` and multiplies the key indices
+    `keys`; gather(x) concatenates every rank's bootstrapped bits along
+    the leading axis, and reduce(x) turns the ranks' partial sums over key
+    indices, (2, L, m) mod p each, into the total mod p."""
     n, m, l = params.n, params.m, params.num_digits
     plan = ctx.plan_Q
     p = plan.p
-    dev = enc_bits.a.device
+    a_bits, b_bits = enc_bits.a[keys], enc_bits.b[keys]
+    shard, dev = a_bits.shape[0], a_bits.device
     # trivial LWE encrypting 1: a = 0, b = Dr (src/fhe.jl:670-671)
-    a_triv = torch.zeros((n, n), dtype=torch.int64, device=dev)
-    b_triv = torch.full((n,), params.Dr, dtype=torch.int64, device=dev)
+    a_triv = torch.zeros((shard, n), dtype=torch.int64, device=dev)
+    b_triv = torch.full((shard,), params.Dr, dtype=torch.int64, device=dev)
     (a_q, b_q), _, _ = bootstrap_internal(
-        params, ctx, bkey_hat, bkey_shoup, a_triv, b_triv, enc_bits.a, enc_bits.b,
+        params, ctx, bkey_hat, bkey_shoup, a_triv, b_triv, a_bits, b_bits,
         boot_seed2, plain=plain,
     )
+    if gather is not None:
+        a_q, b_q = gather(a_q), gather(b_q)
     # polynomial i collects coefficient i of every gate's LWE (src/fhe.jl:675-678)
-    as_polys = pol.resize(a_q.permute(2, 1, 0), m)  # (n, L, m)
-    b_poly = pol.resize(b_q.t(), m)                 # (L, m)
+    as_polys = pol.resize(a_q.permute(2, 1, 0)[keys], m)  # (n, L, m)
+    b_poly = pol.resize(b_q.t(), m)                       # (L, m)
 
     # shortened external products against rows l..2l-1 (src/fhe.jl:632-641);
     # the pack stage's mask stream takes step n, one beyond every rotation
@@ -202,19 +223,24 @@ def pack_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     if pack_seed2 is None:
         d = rns_mod.flatten(ctx.rns, as_polys)  # (n, l, L, m)
     else:
+        assert keys == slice(None), "randomized pack: one rank holds every key index"
         d = rns_mod.flatten_random(ctx.rns, as_polys, params.moduli, pack_seed2, n, op=0)
     d_hat = ntt_mod.ntt_fwd(plan, d)
     sums = []
     for c in range(2):
         acc = None
         for i in range(l):
-            prod = mm.shoup_mul(d_hat[:, i], mm.u32(bkey_hat[:, l + i, c]),
-                                mm.u32(bkey_shoup[:, l + i, c]), p)  # (n, L, m)
+            prod = mm.shoup_mul(d_hat[:, i], mm.u32(bkey_hat[keys, l + i, c]),
+                                mm.u32(bkey_shoup[keys, l + i, c]), p)  # (n, L, m)
             acc = prod if acc is None else mm.addmod(acc, prod, p)
         # the sum over key indices (src/fhe.jl:686-687) in the hat domain
-        sums.append(ntt_mod.ntt_inv(plan, _sum_mod(acc, p)))
-    w1 = mm.negmod(sums[0], p)
-    v1 = mm.submod(b_poly, sums[1], p)
+        sums.append(_sum_mod(acc, p))
+    sums = torch.stack(sums)
+    if reduce is not None:
+        sums = reduce(sums)
+    w_sum, v_sum = ntt_mod.ntt_inv(plan, sums)
+    w1 = mm.negmod(w_sum, p)
+    v1 = mm.submod(b_poly, v_sum, p)
     return RLWE(rns_mod.rescale_exact(ctx.rns, w1, params.r, params.moduli),
                 rns_mod.rescale_exact(ctx.rns, v1, params.r, params.moduli))
 

@@ -26,6 +26,8 @@ given and agree with the JAX package bit for bit on its words.
 
 from __future__ import annotations
 
+import functools
+
 import numpy as np
 import torch
 
@@ -110,16 +112,20 @@ def tables_hat(params: Params, ctx: Scheme2Context, f_tables) -> torch.Tensor:
 
 def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
                     ua, ub, t0, seed2=None, prune: int = 0, *,
-                    plain: bool = False) -> LWE:
+                    plain: bool = False, rotate=None) -> LWE:
     """Rotate each lane's test vector t0 (M, L, m) (hat domain) by its phase
-    (ua (M, n), ub (M,) mod r), extract coefficient 0, switch Q -> r."""
+    (ua (M, n), ub (M,) mod r), extract coefficient 0, switch Q -> r.
+    rotate: None (`blind_rotate` on bkey_hat/bkey_shoup) or another
+    rotation, as in models/bootstrap.bootstrap_internal."""
     n, m = params.n, params.m
     plan = ctx.plan_Q
     shift = (2 * m - ub) & (2 * m - 1)
     b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, t0, shift))
     a_acc = torch.zeros_like(b_acc)
-    a_acc, b_acc = blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
-                                seed2, prune, plain=plain)
+    if rotate is None:
+        rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
+                                   plain=plain)
+    a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
     a_q = pol.extract(a_acc, 0, n, plan.p)  # (M, L, n)
     a_r = rns_mod.rescale_exact(ctx.rns_Q, a_q, params.r, params.moduli)
     b_r = rns_mod.rescale_exact(ctx.rns_Q, b_acc[..., :1], params.r, params.moduli)[..., 0]
@@ -128,14 +134,14 @@ def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
 
 def bootstrap_internal(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
                        lwe_u: LWE, t_hats, seed2=None, prune: int = 0, *,
-                       plain: bool = False) -> LWE:
+                       plain: bool = False, rotate=None) -> LWE:
     """F functions of each phase of lwe_u ((B, n)/(B,)) in one rotation of
     B·F gate-major lanes; seed2 used as given. Returns (B, F, n)/(B, F)."""
     B, F = lwe_u.a.shape[0], t_hats.shape[0]
     out = _rotate_extract(
         params, ctx, bkey_hat, bkey_shoup, lwe_u.a.repeat_interleave(F, dim=0),
         lwe_u.b.repeat_interleave(F, dim=0), t_hats.repeat(B, 1, 1), seed2, prune,
-        plain=plain,
+        plain=plain, rotate=rotate,
     )
     return LWE(out.a.reshape(B, F, params.n), out.b.reshape(B, F))
 
@@ -163,14 +169,17 @@ def _select(out: LWE, f: int) -> LWE:
 
 
 def _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry, seed2, prune: int = 0, *,
-                    plain: bool = False):
+                    plain: bool = False, rotate=None):
+    """add_with_carry on seed words used as given; bkey is None when
+    `rotate` brings its own key."""
     k = params.k
     zmax = 2 ** (k + 1)
     u = _lwe_sum(params, lwe1, lwe2) if carry is None else _lwe_sum(params, lwe1, lwe2, carry)
     th = tables_hat(params, ctx, [[z % 2**k for z in range(zmax)],
                                   [int(z >= 2**k) for z in range(zmax)]])
-    out = bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup, u, th, seed2, prune,
-                             plain=plain)
+    hat, shoup = (None, None) if bkey is None else (bkey.hat, bkey.hat_shoup)
+    out = bootstrap_internal(params, ctx, hat, shoup, u, th, seed2, prune, plain=plain,
+                             rotate=rotate)
     return _select(out, 0), _select(out, 1)
 
 

@@ -8,7 +8,9 @@ polynomial at ψ^(2*br(idx)+1). The inverse is the mirrored decimation in
 time followed by the ψ^{-i}·m^{-1} post-twist. The bootstrap key is stored
 in this hat order, so `build_plan` takes ψ from the same deterministic
 `root_of_unity` as the JAX package and every table equals its counterpart
-bit for bit (tests/test_torch_params_ntt.py).
+bit for bit (tests/test_torch_params_ntt.py). A plan built with
+negacyclic=False is the plain cyclic transform over x^m - 1 (ψ = 1), the
+sub-transforms of the distributed four-step NTT (parallel/ntt_dist.py).
 """
 
 from __future__ import annotations
@@ -63,9 +65,11 @@ def _shoup_table(vals: np.ndarray, moduli) -> np.ndarray:
     return (vals.astype(np.uint64) << np.uint64(32)) // p
 
 
-def build_plan_host(moduli: tuple[int, ...], m: int) -> dict:
+def build_plan_host(moduli: tuple[int, ...], m: int, negacyclic: bool = True) -> dict:
     """The plan's tables as numpy uint64 arrays (exact host computation,
-    the same loops as the JAX package's build_plan)."""
+    the same loops as the JAX package's build_plan): the ψ-twisted
+    transform over x^m + 1, or with negacyclic=False the cyclic one over
+    x^m - 1 (ψ = 1, ω a primitive m-th root)."""
     assert m >= 2 and (m & (m - 1)) == 0
     L = len(moduli)
     stages = m.bit_length() - 1
@@ -77,10 +81,15 @@ def build_plan_host(moduli: tuple[int, ...], m: int) -> dict:
     psi_pow = np.zeros((L, 2 * m), dtype=np.uint64)
     for li, p in enumerate(moduli):
         assert p < (1 << 30), "moduli must be < 2^30 for Shoup/lazy arithmetic"
-        assert (p - 1) % (2 * m) == 0, "p must be ≡ 1 mod 2m for negacyclic NTT"
-        psi = pr.root_of_unity(2 * m, p)
-        assert pow(psi, m, p) == p - 1
-        omega = psi * psi % p
+        if negacyclic:
+            assert (p - 1) % (2 * m) == 0, "p must be ≡ 1 mod 2m for negacyclic NTT"
+            psi = pr.root_of_unity(2 * m, p)
+            assert pow(psi, m, p) == p - 1
+            omega = psi * psi % p
+        else:
+            assert (p - 1) % m == 0, "p must be ≡ 1 mod m for cyclic NTT"
+            psi = 1
+            omega = pr.root_of_unity(m, p)
         inv_omega = pr.inv_mod(omega, p)
         inv_psi = pr.inv_mod(psi, p)
         inv_m = pr.inv_mod(m, p)
@@ -119,11 +128,11 @@ def build_plan_host(moduli: tuple[int, ...], m: int) -> dict:
                 mono=mono)
 
 
-def build_plan(moduli: tuple[int, ...], m: int, device) -> NttPlan:
+def build_plan(moduli: tuple[int, ...], m: int, device, negacyclic: bool = True) -> NttPlan:
     """Host-side plan construction (exact), tables moved to `device`."""
     moduli = tuple(int(p) for p in moduli)
     L = len(moduli)
-    h = build_plan_host(moduli, m)
+    h = build_plan_host(moduli, m, negacyclic)
 
     def t(a):
         return torch.as_tensor(np.asarray(a, dtype=np.int64), device=device)

@@ -163,6 +163,7 @@ def flatten_random(
     step: int,
     op=0,
     prune: int = 0,
+    c0=None,
 ) -> torch.Tensor:
     """Randomized gadget decomposition: mask each kept digit with an exactly
     uniform value in [-2^k, 2^k) drawn from the documented Threefry stream
@@ -172,18 +173,24 @@ def flatten_random(
     axes. `op` is the operand's index in the stream; a tuple of them takes
     one operand each along x's first axis (the gate index then runs over
     the axes after it), so that one Threefry call draws every operand's
-    masks."""
+    masks. c0: the counters given instead, shaped as x without its limb
+    axis (and without the operand axis of a tuple `op`): a caller that
+    holds a column slice of the coefficient axis (the tensor-parallel
+    rotation, parallel/rotate_dist.py) passes the global gate * m + coeff
+    of each element, so that its masks are the single-device ones."""
     L = ctx.p.shape[0]
     m = x.shape[-1]
     stacked = isinstance(op, (tuple, list))
     ops = tuple(op) if stacked else (op,)
     batch = x.shape[1:-2] if stacked else x.shape[:-2]
-    ng = 1
-    for b in batch:
-        ng *= int(b)
     dev = x.device
-    g = torch.arange(ng, dtype=torch.int64, device=dev).reshape(batch + (1,))
-    c0 = (g * m + torch.arange(m, dtype=torch.int64, device=dev)) & MASK32
+    if c0 is None:
+        ng = 1
+        for b in batch:
+            ng *= int(b)
+        g = torch.arange(ng, dtype=torch.int64, device=dev).reshape(batch + (1,))
+        c0 = g * m + torch.arange(m, dtype=torch.int64, device=dev)
+    c0 = c0 & MASK32
     seed2 = (int(seed2[0]) & MASK32, int(seed2[1]) & MASK32)
     words = mask_words(seed2, c0, step, ops, L)
     if not stacked:

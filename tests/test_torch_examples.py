@@ -1,8 +1,10 @@
-"""Each single-card example of the port (sgfhe_tpu_torch/examples/) runs
-its `main` on the CPU at a small size, and its own checks pass: every sum
-of the adder, every generation of the depth soak, the noise report of
-`errors` inside the decision boundary, both round trips of the scheme-2
-demo, and every digit of scheme2_add's add, mul, sub_wide and min_max."""
+"""Each example of the port (sgfhe_tpu_torch/examples/) runs its `main` on
+the CPU at a small size, and its own checks pass: every sum of the adder,
+every generation of the depth soak, the noise report of `errors` inside
+the decision boundary, both round trips of the scheme-2 demo, every digit
+of scheme2_add's add, mul, sub_wide and min_max, and, in a gloo world of
+one process, every gate of the scaling harness and every digit and carry
+of scheme2_dist's tensor-parallel add."""
 
 import pytest
 
@@ -12,8 +14,11 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from sgfhe_tpu_torch import examples  # noqa: E402
-from sgfhe_tpu_torch.examples import (adder, depth, errors, scheme2_add,  # noqa: E402
-                                      scheme2_demo)
+import torch.distributed as dist  # noqa: E402
+
+from sgfhe_tpu_torch.examples import (adder, depth, errors, scaling, scheme2_add,  # noqa: E402
+                                      scheme2_demo, scheme2_dist)
+from sgfhe_tpu_torch.parallel import distributed as pdist  # noqa: E402
 
 
 def test_parse_takes_positionals_device_and_flags():
@@ -61,3 +66,27 @@ def test_scheme2_add(capsys, monkeypatch):
     for what in ("(digit+carry verified)", "(lo+hi digits verified)",
                  "(diff + [x>=y] flag verified)", "(both extrema verified)"):
         assert what in text
+
+
+@pytest.fixture
+def world1(tmp_path):
+    """A gloo world of this process alone, joined by a file (the examples
+    use the world they find)."""
+    pdist.initialize(f"file://{tmp_path / 'pg'}", 1, 0, device="cpu")
+    yield
+    dist.destroy_process_group()
+
+
+def test_scaling(world1, capsys, monkeypatch):
+    monkeypatch.setattr(scaling, "ITERS", 1)  # one timed call
+    rows = scaling.main(["6", "64", "--device", "cpu"])
+    assert [(nd, eff) for nd, _, eff in rows] == [(1, 1.0)] and rows[0][1] > 0
+    text = capsys.readouterr().out
+    assert "devices=1:" in text and "PASS: 6 gates on the 1-rank mesh" in text
+
+
+def test_scheme2_dist(world1, capsys):
+    out = scheme2_dist.main(["1", "2", "0", "64", "--device", "cpu"])
+    assert out["key_dist"].shape[-2:] == (4, 128)
+    assert "PASS k=1 dist (tp=1, prune=0): digit+carry decrypt-verified on 2 adds" in \
+        capsys.readouterr().out

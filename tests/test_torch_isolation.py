@@ -84,7 +84,9 @@ def test_new_modules_are_covered():
                 "models.wideint", "debug.noise", "native", "serialize", "utils.progress",
                 "utils.profiling", "prewarm", "refimpl.golden", "examples", "examples.adder",
                 "examples.depth", "examples.errors", "examples.scheme2_demo",
-                "examples.scheme2_add"):
+                "examples.scheme2_add", "parallel", "parallel.mesh", "parallel.distributed",
+                "parallel.sharded", "parallel.ntt_dist", "parallel.rotate_dist",
+                "examples.scaling", "examples.scheme2_dist"):
         assert f"sgfhe_tpu_torch.{mod}" in names
 
 

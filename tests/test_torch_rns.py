@@ -1,6 +1,7 @@
-"""The port's RNS flatten (deterministic and randomized), Threefry, exact
-Q->r switch and negacyclic bit product against the JAX package, bit for
-bit, on the CPU."""
+"""The port's RNS flatten (deterministic and randomized, also on the
+global counters c0 of the tensor-parallel rotation), Threefry, exact Q->r
+switch and negacyclic bit product against the JAX package, bit for bit, on
+the CPU."""
 
 import numpy as np
 import pytest
@@ -141,3 +142,24 @@ def test_flatten_random_stacked_operands_equal_reference(rns64):
         r = rrns.flatten_random(ref, jnp.asarray(x2[op], jnp.uint32), params.moduli, (lo, hi),
                                 5, op=op)
         _eq(r, g[op])
+
+
+@pytest.mark.parametrize("prune", [0, 1])
+def test_flatten_random_with_global_counters_equals_the_jax_package(rns64, prune):
+    """The sharded rotation's mask counters gate*m + i1*m2 + idx*m2_loc + j
+    (parallel/rotate_dist.blind_rotate_dist at (m1, m2) = (16, 32), rank 1
+    of 2), given as c0, draw the JAX package's masks."""
+    params, ref, got, _ = rns64
+    L, m1, m2, D, idx = params.num_limbs, 16, 32, 2, 1
+    m2l = m2 // D
+    rng = np.random.default_rng(11)
+    x = rng.integers(0, 1 << 30, (3, L, m1 * m2l)) % np.array(params.moduli).reshape(L, 1)
+    g = np.arange(3)[:, None, None] * params.m
+    c0 = (g + np.arange(m1)[None, :, None] * m2 + idx * m2l
+          + np.arange(m2l)[None, None, :]).reshape(3, m1 * m2l)
+    lo, hi = 0x0BADF00D, 0x5EED1234
+    want = rrns.flatten_random(ref, jnp.asarray(x, jnp.uint32), params.moduli,
+                               (jnp.uint32(lo), jnp.uint32(hi)), 9, op=1,
+                               c0=jnp.asarray(c0, jnp.uint32), prune=prune)
+    _eq(want, trns.flatten_random(got, torch.as_tensor(x), params.moduli, (lo, hi), 9, op=1,
+                                  prune=prune, c0=torch.as_tensor(c0)))
