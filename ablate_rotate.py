@@ -11,7 +11,7 @@ turn, each kernel of csrc/rotate.cu under:
     the digit chain l x L times;
   - mac_rotate_ntt_inv: every (G, chunk) that fits shared memory: the data
     mac_plan's constants were fitted to (G = 1 stages the key per gate);
-  - both: a copy of rotate.cu with RADIX_LOG 1 (one __syncthreads per NTT
+  - both: a copy of rotate.cu on RADIX_LOG 1 (one __syncthreads per NTT
     stage), built by nvcc into build/ablation/ and thrown away with it.
 Every variant's output is held against the planned kernel's, bit for bit.
 Each is timed twice, in forward and then in reverse order. The card's name
@@ -32,17 +32,22 @@ ROOT = Path(__file__).resolve().parent
 
 
 def radix2_lib(_build) -> ctypes.CDLL:
-    """rotate.cu with one butterfly stage per shared-memory exchange."""
-    text = (_build.CSRC / "rotate.cu").read_text()
-    if "#define RADIX_LOG 4\n" not in text:
-        raise RuntimeError("rotate.cu no longer defines RADIX_LOG 4")
+    """rotate.cu with one butterfly stage per shared-memory exchange: a copy
+    of it beside a copy of rotate_common.cuh with RADIX_LOG 1."""
+    header = (_build.CSRC / "rotate_common.cuh").read_text()
+    if "#define RADIX_LOG 4\n" not in header:
+        raise RuntimeError("rotate_common.cuh no longer defines RADIX_LOG 4")
     out_dir = ROOT / "build" / "ablation"
     out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "rotate_common.cuh").write_text(
+        header.replace("#define RADIX_LOG 4\n", "#define RADIX_LOG 1\n"))
     src, so = out_dir / "rotate_radix2.cu", out_dir / "librotate_radix2.so"
-    src.write_text(text.replace("#define RADIX_LOG 4\n", "#define RADIX_LOG 1\n"))
+    src.write_text((_build.CSRC / "rotate.cu").read_text())
     subprocess.run([_build._nvcc(), *_build.NVCC_FLAGS, "-o", str(so), str(src)], check=True)
     lib = ctypes.CDLL(str(so))
-    _build._declare(lib)
+    for name, args in _build._SIGNATURES["rotate.cu"].items():
+        fn = getattr(lib, name)
+        fn.argtypes, fn.restype = args, ctypes.c_int
     return lib
 
 

@@ -4,25 +4,39 @@ kernels against their plain PyTorch versions.
     python3 chip_smoke.py
 
 Phases, each printing its own lines; any failure raises and exits nonzero:
-  1. the card's name and power limit; build the kernels from csrc/.
-  2. kernels vs twin on the card, bit for bit, at Params(64) with port-made
-     keys: exact (carry and w-multiply T-modes), prune 1 and 2, randomized,
-     and near-2^29 moduli with l = 3.
-  2b. one step of each kernel against its plain version, bit for bit, at
-     L in {2, 3, 4} x m in {512, 1024, 2048, 4096, 8192, 16384, 32768}
-     with near-2^29 moduli, random canonical inputs and key slice, B = 1
-     and a batch whose last gate tile is partial, every prune, exact and
-     randomized, every T-mode.
+  1. the card's name and power limit; build the kernels from csrc/ (one
+     nvcc a source, started together).
+  2. the kernels vs the twin on the card, bit for bit, at Params(64) with
+     port-made keys: exact, prune 1 and 2, randomized, and near-2^29 moduli
+     with l = 3; the step pair in both of its T-modes (carry and
+     w-multiply), and rotate_resident (the whole rotation in one launch)
+     == its plain version == the twin == the step pair, one launch each.
+  2b. one step of each step-pair kernel against its plain version, bit for
+     bit, at L in {2, 3, 4} x m in {512, 1024, 2048, 4096, 8192, 16384,
+     32768} with near-2^29 moduli, random canonical inputs and key slice,
+     B = 1 and a batch whose last gate tile is partial, every prune, exact
+     and randomized, every T-mode; rotate_resident == plain == the step pair
+     at every (L, m) whose key the route admits, n = 64 steps, B = 1 and a
+     batch whose last gate tile is partial, every prune, both modes.
   3. each kernel against its plain version at the main paths' shapes
      (Params(64), Params(512), scheme 2 at k=1), in both of its modes,
      with its time (steps 0..n-1 in turn, as the main path walks the key),
-     the plain version's time and its bound; then one step of each, bit
-     for bit against plain in both modes, at every other batch a main path
-     launches (mul's 1024, 512 and 256 lanes; the pack's 512 at Params(512)).
+     the plain version's time and its bound; rotate_resident at Params(64)
+     and B = 4096 in four modes (exact, randomized, prune 1 and 2): ms a
+     launch (a whole rotation), the plain version's ms, the bound over the
+     whole loop; its ms at every gate tile that fits, the step pair's whole
+     rotation on the same gates, its registers and spills; then one step of
+     each step-pair kernel, bit for bit against plain in both modes, at
+     every other batch a main path launches (mul's 1024, 512 and 256 lanes;
+     the pack's 512 at Params(512)).
   4. main path at Params(64): keygen, encrypt, split, bootstrap_batch on
-     4096 gates, decrypt_bit, AND/OR/XOR truth tables, gates/s, and a
-     profiler trace of one call (device busy and idle time, each kernel's
-     own device time).
+     4096 gates, decrypt_bit, AND/OR/XOR truth tables, in exact, randomized,
+     prune 1 and prune 2 modes through rotate_resident (one launch a
+     rotation), alternating with the same gates through the step pair (2n
+     launches), outputs equal bit for bit; gates/s of both routes, and a
+     profiler trace of one exact call of each (device busy and idle time,
+     each kernel's own device time, the kernels the host launched; every
+     phase's traces print these).
   5. main path at Params(512), full width (576 MiB key): 256 gates, truth
      tables, gates/s, launches == 2n per call, the trace, the twin's time on
      the card for the same batch and its equality with the kernels' output.
@@ -33,7 +47,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      launches == 2n per rotation round, a trace of one add_with_carry
      call; and at the toy n = 64 (k=1, a smaller depth; phase 12 does the
      same at n = 1024), on 4 pairs the kernels' output of add_with_carry
-     and of mul equal to the twin's in deterministic and randomized mode.
+     and of mul equal to the twin's in deterministic and randomized mode,
+     one rotate_resident launch a rotation.
   7. the rest of scheme 1's API at Params(512): a public key, its
      ciphertexts through split, bootstrap_batch and decrypt (truth
      tables), the space-optimal round trip for both key types, and
@@ -45,15 +60,17 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      bit against evaluate_plain (deterministic and randomized), launches
      == 2n a level, seconds an evaluation and additions/s, the noise report
      of the adder's outputs; one step of each kernel == plain at every
-     level batch; ripple_adder(8) at Params(64) through the kernels equal
-     to plain, deterministic and with each level's seed words given.
+     level batch; ripple_adder(8) at Params(64) through rotate_resident
+     (one launch a level) equal to plain, deterministic and with each
+     level's seed words given.
   9. wide integers at scheme 2's k=1, n=1024 (the phase-6 key), W = 3
      digits, 64 numbers: add_wide, sub_wide, mul_wide and min_max_wide
      timed, select_wide, eq_wide and sort_wide (N = 4), randomized
      sub_wide and min_max_wide, every value against numpy; one step of each
      kernel == plain at every batch these ops launch; min_max_wide and
-     mul_wide at the toy n=64 (a smaller depth), W = 2, B = 2, through the
-     kernels equal to plain with pinned seed words.
+     mul_wide at the toy n=64 (a smaller depth), W = 2, B = 2, through
+     rotate_resident (one launch a rotation) equal to plain with pinned
+     seed words.
   10. scheme 2 at k=2 and k=4, n=1024 (m = 4096 and 16384, L = 3 and 4):
      each key made on the card after a free-memory check, add_with_carry
      on 1024 and 256 pairs (adds/s, every digit, max |phase noise|, a
@@ -91,7 +108,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      every batch the phase launches.
   14. the single-card examples in-process on the card: adder (8 bits,
      n = 64, 4 instances) and depth (10 generations, n = 64), each checking
-     its own results, launches counted.
+     its own results, one rotate_resident launch a rotation.
   15. the multi-device layer (parallel/) at world size 1 over NCCL: (a)
      bootstrap_batch_sharded on the (1, 1) mesh, phase 11's 1024 gates at
      Params(1024) through the kernels, == bootstrap_batch bit for bit,
@@ -102,7 +119,7 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      scheme2_dist example at k = 4 (after a free-memory check), its
      add_with_carry_dist == the kernel route's add_with_carry at prune 0
      and 1, every digit and carry right; (d) the scaling example at 256
-     gates, n = 64.
+     gates, n = 64, one rotate_resident launch a rotation.
 Each phase prints its seconds, and the build and phases their total. The
 line before the last is the kernel table as JSON; the last line is
 {"ok": true, "device": {...}}. Without a CUDA device, or outside a checkout
@@ -186,6 +203,22 @@ def mac_cost(B, L, m, lk, t_mode):
     return nbytes, muls * SHOUP_MULS
 
 
+def resident_cost(B, L, m, n, lk, randomized, carry):
+    """Bytes and int32 multiplies one rotate_resident launch needs, the whole
+    n-step loop reckoned as fwd_cost and mac_cost reckon a step: the
+    accumulators read once and written once, the key's kept rows read once
+    (the gate tiles share them in L2), the exponents and tables; n steps of
+    the forward and MAC work (the T-term carried, or by w-multiplies when
+    pruned), and with a carried T the forward NTT of the entry
+    accumulators."""
+    logm = m.bit_length() - 1
+    nbytes = (2 * 2 * B * L * m * 4 + n * 2 * lk * 2 * L * m * 4 + B * n * 4
+              + L * 10 * m * 4)
+    step = fwd_cost(B, L, m, lk, randomized)[1] + mac_cost(B, L, m, lk, 2 if carry else 0)[1]
+    entry = B * 2 * L * (m // 2) * logm * SHOUP_MULS if carry else 0
+    return nbytes, n * step + entry
+
+
 def ptxas_entry(text: str, kernel: str) -> str:
     """The `-Xptxas -v` lines of the entry functions whose mangled name
     holds `kernel`, one string."""
@@ -229,20 +262,22 @@ def main() -> int:
     print(f"[1] python {sys.version.split()[0]} torch {torch.__version__} cuda {torch.version.cuda}")
     t0 = time.perf_counter()
     # registers, stack frames and spills of every kernel instance, from a
-    # second nvcc run beside the build (phase 10 prints the L = 4 lines)
+    # second nvcc run a source beside the build (phase 3 prints the resident
+    # kernel's lines, phase 10 the L = 4 forward kernel's)
     _build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    ptxas = subprocess.Popen(
+    ptxas = [subprocess.Popen(
         [_build._nvcc(), "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-         "-cubin", "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / "ptxas-report.cubin"),
-         str(_build.CSRC / "rotate.cu")],
-        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+         "-cubin", "-Xptxas", "-v", "-o", str(_build.BUILD_DIR / f"ptxas-{src}.cubin"),
+         str(_build.CSRC / src)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True) for src in _build.SOURCES]
     try:
         _build.build_all()
-        ptxas_text = ptxas.communicate(timeout=600)[0]
+        ptxas_text = "\n".join(px.communicate(timeout=600)[0] for px in ptxas)
     finally:
-        if ptxas.poll() is None:
-            ptxas.kill()
-            ptxas.communicate()
+        for px in ptxas:
+            if px.poll() is None:
+                px.kill()
+                px.communicate()
     print(f"[1] kernels built in {time.perf_counter() - t0:.1f} s")
     t_start = t0
     phase_t = [time.perf_counter()]
@@ -256,9 +291,51 @@ def main() -> int:
     def reset():
         fused.flatten_ntt_fwd.launches = 0
         fused.mac_rotate_ntt_inv.launches = 0
+        fused.blind_rotate_fused.launches = 0
 
     def counts():
+        """The step pair's launches (flatten_ntt_fwd, mac_rotate_ntt_inv)."""
         return fused.flatten_ntt_fwd.launches, fused.mac_rotate_ntt_inv.launches
+
+    def rcount():
+        """rotate_resident's launches."""
+        return fused.blind_rotate_fused.launches
+
+    def resident_route(params):
+        return tbs._rotation_route(params, dev, 0, False) == "resident"
+
+    def expect_launches(tag, params, rotations):
+        """Since the last reset(): one rotate_resident launch a rotation for
+        a resident-size key and no step-pair launch, else 2n a rotation and
+        no resident launch. Returns a description."""
+        got = (counts(), rcount())
+        if resident_route(params):
+            want = ((0, 0), rotations)
+        else:
+            want = ((rotations * params.n,) * 2, 0)
+        if got != want:
+            fail(f"[{tag}] launches (step pair, rotate_resident) {got}, expected {want} for "
+                 f"{rotations} rotations at n = {params.n}")
+        if resident_route(params):
+            return f"rotate_resident {rotations} = 1 a rotation, step pair 0"
+        return f"(flatten_ntt_fwd, mac_rotate_ntt_inv) {got[0]} = 2n a rotation, rotate_resident 0"
+
+    class CountRotations:
+        """Counts the calls of models/bootstrap.blind_rotate (every gate and
+        digit rotation of both schemes, the sharded path's too) while open."""
+
+        def __enter__(self):
+            self.n, self.orig = 0, tbs.blind_rotate
+
+            def counted(*a, **k):
+                self.n += 1
+                return self.orig(*a, **k)
+
+            tbs.blind_rotate = B2.blind_rotate = counted
+            return self
+
+        def __exit__(self, *exc):
+            tbs.blind_rotate = B2.blind_rotate = self.orig
 
     def keys(params, seed, ctx=None):
         ctx = ctx or T.make_context(params, device=dev)
@@ -294,6 +371,7 @@ def main() -> int:
         ("near-2^29 l=3 w-multiply", p_big, ctx_big, bk_big, 0, None, False),
     ]
     reset()
+    twins = {}  # (params, prune, seed2) -> inputs, the twin's and the step pair's outputs
     for name, params, ctx, bk, prune, seed2, carry in cases:
         ua, a0, b0 = rand_acc(params, 8, 3)
         want = tbs.blind_rotate(params, ctx, bk.hat, bk.hat_shoup, ua, a0, b0,
@@ -306,7 +384,28 @@ def main() -> int:
                 fail(f"kernel != twin in mode {name}: "
                      f"{int((w != g).sum())} of {w.numel()} words differ")
         print(f"[2] kernel == twin bit for bit: {name}")
+        entry = twins.setdefault((params, prune, seed2), dict(
+            inputs=(ua, a0, b0), want=want, steps=[], ctx=ctx, bk=bk,
+            name=name.replace(" carry", "").replace(" w-multiply", "")))
+        entry["steps"].append(got)
     print(f"[2] launches (flatten_ntt_fwd, mac_rotate_ntt_inv): {counts()}")
+    # rotate_resident, one launch for all n steps, == its plain version, the
+    # twin and the step pair in each of its T-modes, on the same 8 gates
+    for (params, prune, seed2), e in twins.items():
+        ua, a0, b0 = e["inputs"]
+        plain = fused.blind_rotate_fused_plain(e["ctx"], e["bk"].hat, ua, a0, b0, seed2, prune)
+        before = rcount()
+        got = fused.blind_rotate_fused(e["ctx"], e["bk"].hat, ua, a0, b0, seed2, prune)
+        torch.cuda.synchronize()
+        if rcount() != before + 1:
+            fail(f"[2] rotate_resident {e['name']}: {rcount() - before} launches, expected 1")
+        for ref_name, ref in (("plain", plain), ("twin", e["want"])) + tuple(
+                (f"step pair {i}", s_) for i, s_ in enumerate(e["steps"])):
+            if not all(torch.equal(w, g) for w, g in zip(ref, got)):
+                fail(f"[2] rotate_resident != {ref_name} in mode {e['name']}")
+        print(f"[2] rotate_resident == plain == twin == step pair ({len(e['steps'])} T-mode"
+              f"{'s' if len(e['steps']) > 1 else ''}) bit for bit, one launch: {e['name']}")
+    print(f"[2] rotate_resident launches: {rcount()}")
     phase_done("2")
 
     # ---- 2b. one step of each kernel at every supported shape ---------------
@@ -355,6 +454,45 @@ def main() -> int:
             print(f"[2b] L={L} m={m}: both kernels == plain bit for bit "
                   f"(B = 1 and {ragged}, every prune and mode)")
     print(f"[2b] {n_checks} single-step checks")
+    # rotate_resident at every (L, l = L, m) whose key the route admits (n = 64
+    # steps, the least n of both schemes), near-2^29 moduli, random canonical
+    # key and inputs, B = 1 and a batch whose last gate tile is partial
+    n_res = 0
+    admitted = [(L, m) for L in (2, 3, 4) for m in (512, 1024, 2048)
+                if 32 * 64 * L * L * m <= tbs._RESIDENT_KEY_BYTES]
+    for L, m in admitted:
+        mods = primes.find_rns_primes(2 * m, 1 << (29 * L - 2), (1 << (29 * L - 1)) - 1, L)
+        params = dataclasses.replace(T.Params.create(m // 8), moduli=mods)
+        ctx = T.make_context(params, device=dev)
+        rng = np.random.default_rng(7 * L + m)
+        p = np.array(mods, dtype=np.int64).reshape(L, 1)
+        key = rng.integers(0, 1 << 30, (64, 2 * L, 2, L, m)) % p
+        key_hat = mm.bits32(torch.as_tensor(key, device=dev))
+        key_s = mm.bits32(torch.as_tensor((key << 32) // p, device=dev))
+        sm = fused._sm_count(0)
+        for prune in range(L):
+            ragged = next(B for B in range(2, 4096)
+                          if (g := fused.resident_plan(B, L, L, m, prune, sm).gates) > 1
+                          and B % g)
+            for B in (1, ragged):
+                ua = torch.as_tensor(rng.integers(0, 2 * m, (B, 64)), device=dev)
+                a0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
+                b0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
+                for seed2 in (None, SEED2):
+                    got = fused.blind_rotate_fused(ctx, key_hat, ua, a0, b0, seed2, prune)
+                    refs = [fused.blind_rotate_fused_plain(ctx, key_hat, ua, a0, b0, seed2,
+                                                           prune)]
+                    refs += [fused.blind_rotate_steps(ctx, key_hat, key_s, ua, a0, b0, seed2,
+                                                      prune, carry=c)
+                             for c in ((False, True) if prune == 0 else (False,))]
+                    for ref in refs:
+                        if not all(torch.equal(w, g_) for w, g_ in zip(ref, got)):
+                            fail(f"[2b] rotate_resident != plain or step pair: L={L} m={m} "
+                                 f"B={B} prune={prune} randomized={seed2 is not None}")
+                    n_res += 1
+        print(f"[2b] L={L} m={m}: rotate_resident == plain == step pair bit for bit "
+              f"(B = 1 and {ragged} at prune {L - 1}, every prune, both modes)")
+    print(f"[2b] {n_res} whole-rotation checks at (L, m) in {admitted}")
     phase_done("2b")
 
     # ---- 3. each kernel against its plain version at main-path shapes -------
@@ -384,10 +522,11 @@ def main() -> int:
         ("s2 k=1", s2p, ctx2, bk2, 2 * s2p.n, 0, "sgfhe_tpu/ops/fused.py:604"),
     ]
 
-    def add_row(phase, name, replaces, err, ms, pms, nbytes_muls):
+    def add_row(phase, name, replaces, err, ms, pms, nbytes_muls,
+                source="sgfhe_tpu_torch/csrc/rotate.cu"):
         bms, by = bound(*nbytes_muls)
         table.append(dict(
-            name=name, route="cuda", source="sgfhe_tpu_torch/csrc/rotate.cu",
+            name=name, route="cuda", source=source,
             replaces=replaces, launches=0, max_abs_err=err, ms=ms,
             plain_ms=pms, bound_ms=bms, bound_by=by, library_ms=None,
         ))
@@ -442,6 +581,57 @@ def main() -> int:
 
     for shape in shapes:
         time_kernels(*shape)
+
+    def once_ms(fn):
+        """fn() once, its result and its ms by CUDA events."""
+        start, stop = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        out = fn()
+        stop.record()
+        torch.cuda.synchronize()
+        return out, start.elapsed_time(stop)
+
+    # rotate_resident at Params(64), B = 4096, the main path's shape, in each
+    # mode: == plain, ms a launch (a whole rotation), the plain version's
+    # ms, the bound over the whole loop
+    print(f"[3] rotate_resident registers and spills: "
+          f"{ptxas_entry(ptxas_text, 'rotate_resident_kernel')}")
+    L, m, n = p64.num_limbs, p64.m, p64.n
+    ua, a0, b0 = rand_acc(p64, 4096, 5)
+    sm = fused._sm_count(0)
+    res_modes = [("exact", 0, None), ("randomized", 0, SEED2), ("prune=1", 1, None),
+                 ("prune=2", 2, None)]
+    res_ms = {}
+    for mode, prune, seed2 in res_modes:
+        plan = fused.resident_plan(4096, L, L, m, prune, sm)
+        got = fused.blind_rotate_fused(ctx64, bk64.hat, ua, a0, b0, seed2, prune)
+        want, pms = once_ms(lambda: fused.blind_rotate_fused_plain(
+            ctx64, bk64.hat, ua, a0, b0, seed2, prune))
+        err = max(int((w - g).abs().max()) for w, g in zip(want, got))
+        if err:
+            fail(f"[3] rotate_resident {mode} vs plain max_abs_err {err}")
+        ms = cuda_ms(lambda i: fused.blind_rotate_fused(ctx64, bk64.hat, ua, a0, b0, seed2,
+                                                        prune), 3)
+        res_ms[mode] = ms
+        print(f"[3] rotate_resident {mode} (n=64): plan {plan}")
+        add_row("3", f"rotate_resident {mode} (n=64)", "sgfhe_tpu/ops/fused.py:542", err, ms,
+                pms, resident_cost(4096, L, m, n, L - prune, seed2 is not None, prune == 0),
+                source="sgfhe_tpu_torch/csrc/rotate_resident.cu")
+    # every tile size that fits, exact: the plan's choice against the others
+    sweep = []
+    for G in range(1, fused.SMEM_BLOCK // fused.resident_gate_bytes(L, m, 0) + 1):
+        ms = cuda_ms(lambda i: fused.blind_rotate_fused(ctx64, bk64.hat, ua, a0, b0,
+                                                        gates=G), 3)
+        sweep.append((G, round(ms, 4)))
+    print(f"[3] rotate_resident exact (n=64) ms by gates a block (G, ms): {sweep}; the plan "
+          f"takes G = {fused.resident_plan(4096, L, L, m, 0, sm).gates}")
+    # the step pair on the same batch, all n steps, carried T (t_modes 1, 2)
+    ms = cuda_ms(lambda i: fused.blind_rotate_steps(ctx64, bk64.hat, bk64.hat_shoup, ua, a0, b0,
+                                                    carry=True), 3)
+    print(f"[3] the step pair's whole rotation on the same 4096 gates (carried T): {ms:.4f} ms, "
+          f"{2 * n} launches; rotate_resident exact {res_ms['exact']:.4f} ms, one launch")
+    del ua, a0, b0, want, got
 
     def check_steps(phase, tag, params, ctx, bk, batches, prune=0):
         """One step of each kernel, bit for bit against plain, in both modes
@@ -505,8 +695,9 @@ def main() -> int:
             if i or not warm:
                 times.append(time.perf_counter() - t)
         launches = counts()
-        if not all(launches):
-            fail(f"[{tag}] a rotation kernel was not launched: {launches}")
+        if not (all(launches) or rcount()):
+            fail(f"[{tag}] no rotation kernel was launched: step pair {launches}, "
+                 f"rotate_resident {rcount()}")
         return out, launches, statistics.median(times), times
 
     def timed_s(fn, *args):
@@ -526,11 +717,9 @@ def main() -> int:
 
         out, launches, med, times = timed(tag, call, reps)
         truth_tables(sk, out, y1, y2)
-        want = params.n * (reps + 1)
-        if launches != (want, want):
-            fail(f"{tag}: launches {launches}, expected 2n per call = {want} each")
-        print(f"[{tag}] {B} gates, truth tables AND/OR/XOR hold; launches "
-              f"(flatten_ntt_fwd, mac_rotate_ntt_inv) = {launches} over {reps + 1} calls")
+        what = expect_launches(tag, params, reps + 1)
+        print(f"[{tag}] {B} gates, truth tables AND/OR/XOR hold; launches {what} over "
+              f"{reps + 1} calls")
         rates[tag] = B / med
         print(f"[{tag}] {B / med:.1f} gates/s (median of {reps}: "
               f"{[round(t, 4) for t in times]} s) on {card}")
@@ -549,7 +738,8 @@ def main() -> int:
             torch.cuda.synchronize()
             wall = (time.perf_counter() - t) * 1e3
         busy = 0.0
-        kern = {"flatten_ntt_fwd": [0.0, 0], "mac_rotate_ntt_inv": [0.0, 0]}
+        kern = {"flatten_ntt_fwd": [0.0, 0], "mac_rotate_ntt_inv": [0.0, 0],
+                "rotate_resident": [0.0, 0]}
         for e in prof.key_averages():
             if e.device_type != DeviceType.CUDA or getattr(e, "is_user_annotation", False):
                 continue
@@ -559,11 +749,18 @@ def main() -> int:
                     acc[0] += e.self_device_time_total / 1e3
                     acc[1] += e.count
         rot = sum(ms for ms, _ in kern.values())
-        if not all(n for _, n in kern.values()):
-            fail(f"[{tag}] the trace misses a rotation kernel on the device: {kern}")
+        steps = kern["flatten_ntt_fwd"][1] and kern["mac_rotate_ntt_inv"][1]
+        if not (steps or kern["rotate_resident"][1]):
+            fail(f"[{tag}] the trace misses the rotation kernels on the device: {kern}")
+        kern = {name: v for name, v in kern.items() if v[1]}
+        # the host's kernel launches (the CUDA runtime calls the profiler
+        # records on the CPU side): the work the host issues a call
+        launched = sum(e.count for e in prof.key_averages()
+                       if e.key.startswith("cudaLaunchKernel"))
         print(f"[{tag}] trace of one call: {wall:.2f} ms wall, device busy {busy:.2f} ms "
               f"({busy / wall:.1%}): rotation kernels {rot:.2f} ms, other device ops "
-              f"{busy - rot:.2f} ms; idle {wall - busy:.2f} ms ({1 - busy / wall:.1%})")
+              f"{busy - rot:.2f} ms; idle {wall - busy:.2f} ms ({1 - busy / wall:.1%}); "
+              f"the host launched {launched} kernels")
         for name, (ms, n) in kern.items():
             print(f"[{tag}] trace: {name} {ms:.2f} ms over {n} launches "
                   f"({ms / n:.4f} ms/launch)")
@@ -578,7 +775,68 @@ def main() -> int:
     jj = torch.arange(p64.n, device=dev).repeat(p64.n)
     lwe1, lwe2 = T.LWE(e1.a[ii], e1.b[ii]), T.LWE(e2.a[jj], e2.b[jj])
     y1, y2 = m1.to(dev)[ii].bool(), m2.to(dev)[jj].bool()
-    _, l64, tr64 = drive("4", p64, ctx64, bk64, sk64, lwe1, lwe2, y1, y2, reps=5)
+
+    def step_pair_call(seed2, prune):
+        """bootstrap_batch's work on the same gates with the rotation through
+        the step pair (2n launches; the T-term carried when nothing is
+        pruned), the route these gates took before rotate_resident."""
+        def rotate(ua, a, b, seed2=None, prune=0):
+            return fused.blind_rotate_steps(ctx64, bk64.hat, bk64.hat_shoup, ua, a, b, seed2,
+                                            prune, carry=prune == 0)
+
+        def call():
+            triple = tbs.bootstrap_internal(p64, ctx64, bk64.hat, bk64.hat_shoup, lwe1.a,
+                                            lwe1.b, lwe2.a, lwe2.b, seed2, prune, rotate=rotate)
+            return tuple(tbs._reduce_lwe(p64, ctx64, t) for t in triple)
+
+        return call
+
+    # the main path in each mode through rotate_resident, alternating with the
+    # step pair on the same 4096 gates: every output bit for bit the same,
+    # truth tables, gates/s of both, launches a call (1 against 2n)
+    l64, calls64 = {}, {}
+    for mode, kw, prune in (("exact", {}, 0),
+                            ("randomized", dict(seed_words=SEED2, epoch=0), 0),
+                            ("prune=1", dict(prune=1), 1), ("prune=2", dict(prune=2), 2)):
+        def res_call(kw=kw):
+            return T.bootstrap_batch(p64, ctx64, bk64.hat, bk64.hat_shoup, lwe1, lwe2, **kw)
+
+        st_call = step_pair_call(prg.fold_epoch(SEED2, 0) if kw.get("seed_words") else None,
+                                 prune)
+        reps = 5 if mode == "exact" else 2
+        times, outs = {"rotate_resident": [], "step pair": []}, {}
+        reset()
+        for i in range(reps + 1):  # the first call of each route is its warm-up
+            for route, call in (("rotate_resident", res_call), ("step pair", st_call)):
+                torch.cuda.synchronize()
+                t = time.perf_counter()
+                outs[route] = call()
+                torch.cuda.synchronize()
+                if i:
+                    times[route].append(time.perf_counter() - t)
+        got_l = (counts(), rcount())
+        if got_l != (((reps + 1) * p64.n,) * 2, reps + 1):
+            fail(f"[4] {mode}: launches (step pair, rotate_resident) {got_l} over {reps + 1} "
+                 f"calls of each route, expected 2n = {2 * p64.n} and 1 a call")
+        l64[mode], calls64[mode] = rcount(), reps + 1
+        for out in outs.values():
+            truth_tables(sk64, out, y1, y2)
+        if not all(torch.equal(x.a, y.a) and torch.equal(x.b, y.b)
+                   for x, y in zip(outs["rotate_resident"], outs["step pair"])):
+            fail(f"[4] {mode}: rotate_resident's outputs != the step pair's")
+        med = {r: statistics.median(t) for r, t in times.items()}
+        print(f"[4] {mode}: 4096 gates, truth tables AND/OR/XOR hold through both routes, "
+              f"outputs equal bit for bit; launches a call: rotate_resident 1, step pair "
+              f"{2 * p64.n} (flatten_ntt_fwd and mac_rotate_ntt_inv {p64.n} each)")
+        for route, t in times.items():
+            print(f"[4] {mode} {route}: {4096 / med[route]:.1f} gates/s (median of {reps}: "
+                  f"{[round(x, 4) for x in t]} s, alternating) on {card}")
+        if mode == "exact":
+            rates["4"] = 4096 / med["rotate_resident"]
+            print("[4] exact, rotate_resident, traced:")
+            tr64 = trace("4", res_call)
+            print("[4] exact, step pair, traced:")
+            trace("4", st_call)
     phase_done("4")
 
     # Params(512): every pair (2i, 2i+1) of one 512-bit message -> 256 gates
@@ -630,25 +888,31 @@ def main() -> int:
             want = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2, plain=True)
             torch.cuda.synchronize()
             twin_s = time.perf_counter() - t
+            reset()
             got = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2)
+            what = expect_launches(tag, params, 1)
             for w, g in zip(want, got):
                 if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
                     fail(f"[{tag}] add_with_carry kernels != twin, randomized={seed2 is not None}")
             print(f"[{tag}] add_with_carry on {sx.a.shape[0]} pairs at k={params.k}, "
                   f"n={params.n}, {'randomized (seed words given)' if seed2 else 'deterministic'}"
-                  f": kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+                  f": kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card); "
+                  f"launches {what}")
         for seeds in ((None,) * 3, tuple(prg.split_words(SEED2, 3))):
             t = time.perf_counter()
             want = B2._mul(params, ctx, bk, sx, sy, seeds, plain=True)
             torch.cuda.synchronize()
             twin_s = time.perf_counter() - t
+            reset()
             got = B2._mul(params, ctx, bk, sx, sy, seeds)
+            what = expect_launches(tag, params, 3)
             for w, g in zip(want, got):
                 if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
                     fail(f"[{tag}] mul kernels != twin, randomized={seeds[0] is not None}")
             print(f"[{tag}] mul on {sx.a.shape[0]} pairs at k={params.k}, n={params.n}, "
                   f"{'randomized (split seed words)' if seeds[0] else 'deterministic'}: "
-                  f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card)")
+                  f"kernels' output == twin's bit for bit (twin {twin_s:.2f} s on the card); "
+                  f"launches {what}")
 
     def s2_keys(tag, k, seed):
         """Scheme 2 at k, n = 1024: context and keys made on the card after a
@@ -691,8 +955,7 @@ def main() -> int:
         noise_ = max(digits_noise(f"{tag} k={params.k} {what} low", sk, lo, z % K),
                      digits_noise(f"{tag} k={params.k} {what} high", sk, hi, z // K))
         calls = reps + int(warm)
-        if launches != (calls * rounds * n,) * 2:
-            fail(f"[{tag}] k={params.k} {what} launches {launches}, expected 2n a round")
+        expect_launches(tag, params, calls * rounds)
         pairs = lx.a.shape[0]
         mode = ("randomized" if "seed_words" in kw
                 else ", ".join(f"{k_}={v}" for k_, v in kw.items()) or "exact")
@@ -843,14 +1106,18 @@ def main() -> int:
         want = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds, plain=True)
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t
-        got = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds)
+        reset()
+        with CountRotations() as rot8:
+            got = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds)
+        what = expect_launches("8", p64, rot8.n)
         for w, g in zip(want, got):
             if not (torch.equal(w.lwe.a, g.lwe.a) and torch.equal(w.lwe.b, g.lwe.b)):
                 fail(f"[8] ripple_adder(8) kernels != plain, randomized={seeds is not None}")
         circuit_right("ripple_adder(8)", sk64, circ, bits, got)
         print(f"[8] Params(64) ripple_adder(8) on 4 instances, "
               f"{'randomized (seed words given per level)' if seeds else 'deterministic'}: "
-              f"kernels' output == plain's bit for bit, every bit right (plain {twin_s:.2f} s)")
+              f"kernels' output == plain's bit for bit, every bit right (plain {twin_s:.2f} s); "
+              f"{rot8.n} rotations, launches {what}")
     phase_done("8")
 
     # ---- 9. wide integers at scheme 2's k = 1, n = 1024 ------------------------
@@ -931,14 +1198,17 @@ def main() -> int:
         want_out = numbers(fn(params, ctx, bk, a2, b2, seeds, plain=True))
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t
+        reset()
         got = numbers(fn(params, ctx, bk, a2, b2, seeds))
+        what = expect_launches("9", params, count)
         for w, g in zip(sum(want_out, []), sum(got, [])):
             if not (torch.equal(w.a, g.a) and torch.equal(w.b, g.b)):
                 fail(f"[9] {name}: kernels != plain with pinned seed words")
         for r, w in zip(got, want):
             wide_right(name, sk, r, w)
         print(f"[9] {name}, W=2, B=2, {count} rotations with pinned seed words: kernels' "
-              f"output == plain's bit for bit, values right (plain {twin_s:.2f} s)")
+              f"output == plain's bit for bit, values right (plain {twin_s:.2f} s); "
+              f"launches {what}")
     phase_done("9")
 
     # ---- 10. scheme 2 at k = 2 and k = 4, n = 1024 ------------------------------
@@ -1116,15 +1386,15 @@ def main() -> int:
 
     reset()
     t = time.perf_counter()
-    summed = adder.main(["8", "64", "4"])
-    soak = depth.main(["10", "64"])
+    with CountRotations() as rot14:
+        summed = adder.main(["8", "64", "4"])
+        soak = depth.main(["10", "64"])
     torch.cuda.synchronize()
     ex_s = time.perf_counter() - t
-    if not all(counts()):
-        fail(f"[14] the examples launched no rotation kernel: {counts()}")
+    what = expect_launches("14", p64, rot14.n)
     print(f"[14] examples adder (8 bits, n=64, {len(summed['pairs'])} instances: every sum "
           f"right) and depth ({soak['generations']} generations, n=64: every gate right, max "
-          f"|noise| {soak['max_err']}) in {ex_s:.1f} s; launches {counts()}")
+          f"|noise| {soak['max_err']}) in {ex_s:.1f} s; {rot14.n} rotations, launches {what}")
     phase_done("14")
 
     # ---- 15. the multi-device layer (parallel/) at world size 1 over NCCL -------
@@ -1212,8 +1482,12 @@ def main() -> int:
     del ex, key_p, got, want
     torch.cuda.empty_cache()
     # (d) the scaling harness at its defaults, on the world of one card
-    rows = scaling.main(["256", "64"])
-    print(f"[15d] scaling 256 64: (devices, gates/s, efficiency) = {rows} on {card}")
+    reset()
+    with CountRotations() as rot15:
+        rows = scaling.main(["256", "64"])
+    what = expect_launches("15d", T.Params.create(64), rot15.n)
+    print(f"[15d] scaling 256 64: (devices, gates/s, efficiency) = {rows} on {card}; "
+          f"{rot15.n} rotations, launches {what}")
     dist.destroy_process_group()
     phase_done("15")
     print(f"[total] build and phases {time.perf_counter() - t_start:.1f} s")
@@ -1222,11 +1496,19 @@ def main() -> int:
     # in that path's run, calls, the number of calls in the run, and
     # trace_ms, its device ms per launch in the traced call. The other modes
     # launched 0 times there.
-    runs = {"n=64": (l64, 6, tr64, "carry"), "n=512": (l512, 3, tr512, "w-multiply"),
+    runs = {"n=512": (l512, 3, tr512, "w-multiply"),
             "s2 k=1": (l_add, 3, tr_s2, "w-multiply"), **runs10,
             "n=1024": (l1k, 4, tr1k, "w-multiply"), "s2 k=5": (l_k5, 2, tr_k5, "w-multiply")}
     for row in table:
         tag = row["name"][row["name"].index("(") + 1:-1]
+        if row["name"].startswith("rotate_resident"):  # Params(64)'s main path, phase 4
+            mode = row["name"][len("rotate_resident "):row["name"].index(" (")]
+            row.update(launches=l64[mode], calls=calls64[mode],
+                       trace_ms=tr64["rotate_resident"] if mode == "exact" else None)
+            continue
+        if tag == "n=64":  # the step pair at Params(64): phase 4's comparison route
+            row.update(launches=0, calls=0, trace_ms=None)
+            continue
         counts_, calls, tr, mac_mode = runs[tag]
         fwd = row["name"].startswith("flatten")
         kname = "flatten_ntt_fwd" if fwd else "mac_rotate_ntt_inv"

@@ -2,10 +2,13 @@
 
 Each source under csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface, at first use, into build/kernels/ at the
-root of the checkout (git-ignored), and loaded with ctypes. The library's
-file name carries a hash of its source and flags, so an edited source is
-rebuilt and a stale library is never loaded. Nothing here runs at import
-time: a host without nvcc imports the package and uses the plain versions.
+root of the checkout (git-ignored), and loaded with ctypes: rotate.cu (the
+rotation's step pair) and rotate_resident.cu (the whole rotation in one
+launch), both on the helpers of rotate_common.cuh. The library's file name
+carries a hash of its source, the headers and the flags, so an edited
+source or header is rebuilt and a stale library is never loaded. Nothing
+here runs at import time: a host without nvcc imports the package and uses
+the plain versions.
 """
 
 from __future__ import annotations
@@ -20,7 +23,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("rotate.cu",)
+SOURCES = ("rotate.cu", "rotate_resident.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -40,7 +43,8 @@ def _nvcc() -> str:
 
 
 def _target(source: str) -> Path:
-    text = (CSRC / source).read_bytes() + " ".join(NVCC_FLAGS).encode()
+    headers = b"".join(h.read_bytes() for h in sorted(CSRC.glob("*.cuh")))
+    text = (CSRC / source).read_bytes() + headers + " ".join(NVCC_FLAGS).encode()
     digest = hashlib.sha256(text).hexdigest()[:16]
     return BUILD_DIR / f"lib{Path(source).stem}-{digest}.so"
 
@@ -81,20 +85,27 @@ def build_all() -> dict[str, Path]:
 
 
 def load(source: str = "rotate.cu") -> ctypes.CDLL:
-    """The loaded library of one source, built first if needed."""
+    """The loaded library of one source, built first if needed (every
+    source not yet built is built with it)."""
     lib = _loaded.get(source)
     if lib is None:
         lib = ctypes.CDLL(str(build_all()[source]))
-        _declare(lib)
+        for name, args in _SIGNATURES[source].items():
+            fn = getattr(lib, name)
+            fn.argtypes, fn.restype = args, ctypes.c_int
         _loaded[source] = lib
     return lib
 
 
-def _declare(lib: ctypes.CDLL) -> None:
-    P, I, U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
-    lib.sg_flatten_ntt_fwd.argtypes = [P, P, P, P, I, I, I, I, I, I, U, U, U, P, P]
-    lib.sg_flatten_ntt_fwd.restype = I
-    lib.sg_mac_rotate_ntt_inv.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, P, P]
-    lib.sg_mac_rotate_ntt_inv.restype = I
-    lib.sg_consts_words.argtypes = []
-    lib.sg_consts_words.restype = I
+_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_SIGNATURES = {
+    "rotate.cu": {
+        "sg_flatten_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U, _P, _P],
+        "sg_mac_rotate_ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "sg_consts_words": [],
+    },
+    "rotate_resident.cu": {
+        "sg_rotate_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
+                               _P, _P],
+    },
+}

@@ -307,7 +307,8 @@ def evaluate(circuit: Circuit, params, ctx, bkey, inputs, seed_words=None,
     inputs: one EncryptedBit per circuit input, each a single bit (lwe.a of
     shape (n,)) or a SIMD batch ((B, n), the same B for all), in which case
     the circuit runs on B instances at once. Each level is one batched gate
-    bootstrap (2n kernel launches on the card).
+    bootstrap (one launch on the card for a key of at most 10 MiB, 2n
+    above that).
 
     seed_words: None (deterministic) or two uint32 words for randomized
     flattening; a fresh epoch is folded in per call (pin it with `epoch`)

@@ -8,13 +8,15 @@ flatten both accumulators into balanced digits, forward NTT, Shoup MAC
 against the key, multiply by x^{u_k} in the hat domain, inverse NTT.
 
 The rotation runs either as the twin (`_external_step`, plain PyTorch, the
-counterpart of the JAX package's jnp path) or through the CUDA step kernels
-(ops/fused.blind_rotate_steps). `_rotation_route` picks by the tensors'
-device, never by an environment variable: CPU tensors take the twin, CUDA
-tensors the kernels, with the T-term carried ("carry", the JAX package's
-resident kernel) when prune == 0 and the key with its companions is at most
-10 MiB, and computed by w-multiplies ("wmul", its streamed kernel)
-otherwise. `plain=True` forces the twin on any device.
+counterpart of the JAX package's jnp path) or through CUDA kernels.
+`_rotation_route` picks by the tensors' device and the key's size, never by
+an environment variable, as the JAX package's `_use_fused` does: CPU
+tensors take the twin; on CUDA tensors a key of at most 10 MiB with its
+companions takes "resident", the whole rotation in one launch
+(ops/fused.blind_rotate_fused, the JAX package's resident kernel) in every
+mode and at every prune, and a larger key "wmul", the step pair with the
+T-term by w-multiplies, 2n launches (ops/fused.blind_rotate_steps, its
+streamed kernel). `plain=True` forces the twin on any device.
 
 Deterministic by default; pass two Threefry seed words for randomized
 flattening (ops/prg.py).
@@ -44,13 +46,14 @@ _RESIDENT_KEY_BYTES = 10 * 1024 * 1024
 
 def _rotation_route(params: Params, device: torch.device, prune: int,
                     plain: bool) -> str:
-    """'plain' (the twin), 'carry' or 'wmul' (the CUDA kernels)."""
+    """'plain' (the twin), 'resident' or 'wmul' (the CUDA kernels). Every
+    prune takes the route of prune 0, as in the JAX package."""
     if plain or device.type == "cpu":
         return "plain"
     if device.type != "cuda":
         raise ValueError(f"no rotation path for device {device}")
     resident = fused_mod.fused_bkey_bytes(params) <= _RESIDENT_KEY_BYTES
-    return "carry" if prune == 0 and resident else "wmul"
+    return "resident" if resident else "wmul"
 
 
 def _external_step(params: Params, ctx: SchemeContext, a_acc, b_acc, ck_hat,
@@ -82,11 +85,12 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
     n = params.n
     check_prune(params, prune)
     route = _rotation_route(params, a_acc.device, prune, plain)
-    if route != "plain":
+    if route == "resident":
+        return fused_mod.blind_rotate_fused(ctx, bkey_hat, ua, a_acc, b_acc, seed2, prune)
+    if route == "wmul":
         fused_mod.check_envelope(params)
         return fused_mod.blind_rotate_steps(
             ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
-            carry=route == "carry",
         )
     for k in range(n):
         a_acc, b_acc = _external_step(

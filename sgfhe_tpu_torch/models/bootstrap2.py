@@ -3,9 +3,10 @@ refresh and multiplication (counterpart of sgfhe_tpu/models/bootstrap2.py;
 eprint 2019/521).
 
 Every bootstrap here is one batched n-step blind rotation through the same
-rotation as scheme 1 (models/bootstrap.blind_rotate): the CUDA step kernels
-for CUDA tensors, their plain versions for CPU tensors, and the plain twin
-anywhere when `plain=True`. Each lane rotates its own test vector T by its
+rotation as scheme 1 (models/bootstrap.blind_rotate): the CUDA kernels for
+CUDA tensors (one rotate_resident launch for a key of at most 10 MiB, the
+step pair above that), their plain versions for CPU tensors, and the plain
+twin anywhere when `plain=True`. Each lane rotates its own test vector T by its
 own phase φ = z·Dr + w; extracting coefficient 0 and switching Q -> r gives
 a fresh encryption of f(z), with
 

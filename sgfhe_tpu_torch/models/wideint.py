@@ -4,7 +4,7 @@ sgfhe_tpu/models/wideint.py; eprint 2019/521 §1).
 Numbers are little-endian lists of W digit ciphertexts, each a (B, n) LWE
 batch of B independent integers. Every op composes the functional
 bootstrap of models/bootstrap2.py, so each rotation runs through the CUDA
-step kernels on the card and through their plain versions on the CPU
+rotation kernels on the card and through their plain versions on the CPU
 (`plain=True` forces the plain versions anywhere):
 
  - `add_wide`: ripple carry, W rotations, W + 1 digits out;

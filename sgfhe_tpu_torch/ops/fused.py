@@ -1,10 +1,20 @@
-"""The blind rotation's step kernels (csrc/rotate.cu), their wrappers and
-their plain PyTorch versions.
+"""The blind rotation's CUDA kernels (csrc/rotate_resident.cu, csrc/rotate.cu),
+their wrappers and their plain PyTorch versions.
 
-Counterpart of sgfhe_tpu/ops/fused.py, whose two Pallas TPU kernels,
-`_rotate_kernel` (key resident, T-term carried) and `_rotate_step_kernel`
-(key streamed, T-term by w-multiplies), run all n steps of a batch tile in
-one launch. Here one step is two CUDA launches, and the n-step loop
+Counterpart of sgfhe_tpu/ops/fused.py, whose two Pallas TPU kernels run all
+n steps of a batch tile in one launch: `_rotate_kernel` (key resident in
+VMEM, T-term carried) and `_rotate_step_kernel` (key streamed a step at a
+time, T-term by w-multiplies).
+
+  rotate_resident      `_rotate_kernel`'s counterpart, one launch for the
+                       whole rotation (`blind_rotate_fused`): one block per
+                       tile of G gates (`resident_plan`) loops over the n
+                       steps with its gates' accumulators and digits in
+                       shared memory and reads each step's key from L2. For
+                       keys of at most 10 MiB with their companions
+                       (models/bootstrap._RESIDENT_KEY_BYTES).
+
+For larger keys one step is two CUDA launches and the n-step loop
 (`blind_rotate_steps`) runs on the host:
 
   flatten_ntt_fwd      acc (2, B, L, m) -> d_hat (B, 2(l-prune), L, m):
@@ -15,7 +25,9 @@ one launch. Here one step is two CUDA launches, and the n-step loop
                        NTT. t_mode 0 computes T by w-multiplies (the
                        streamed TPU kernel); t_mode 1 also writes val to
                        `carry` and t_mode 2 reads T from it (the resident
-                       TPU kernel's hat-carry, valid only when prune == 0).
+                       TPU kernel's hat-carry, valid only when prune == 0;
+                       kept so that the step pair can be timed against
+                       rotate_resident on the same batch).
 
 Tensors the wrappers take and return are int32 holding uint32 bit patterns
 (ops/modmath.py); their layouts are the kernels'. A wrapper launches its
@@ -170,15 +182,23 @@ def fused_bkey_bytes(params) -> int:
 # ---------------------------------------------------------------------------
 
 
-def flatten_ntt_fwd_i64(ctx, a_acc, b_acc, seed2, step: int, prune: int = 0):
-    """(B, L, m) accumulators -> d_hat (B, 2(l-prune), L, m), canonical."""
+def flatten_ntt_fwd_i64(ctx, a_acc, b_acc, seed2, step: int, prune: int = 0,
+                        gate0: int = 0):
+    """(B, L, m) accumulators -> d_hat (B, 2(l-prune), L, m), canonical.
+    gate0: the global index of the first gate, which the randomized masks'
+    counters take (a tile of a larger batch)."""
     rns = ctx.rns
     if seed2 is None:
         da = rns_mod.flatten(rns, a_acc, prune)
         db = rns_mod.flatten(rns, b_acc, prune)
     else:
+        c0 = None
+        if gate0:
+            B, m = a_acc.shape[0], a_acc.shape[-1]
+            gates = torch.arange(gate0, gate0 + B, dtype=torch.int64, device=a_acc.device)
+            c0 = gates[:, None] * m + torch.arange(m, dtype=torch.int64, device=a_acc.device)
         da, db = rns_mod.flatten_random(rns, torch.stack([a_acc, b_acc]), ctx.fused.moduli,
-                                        seed2, step, op=(0, 1), prune=prune)
+                                        seed2, step, op=(0, 1), prune=prune, c0=c0)
     return ntt_mod.ntt_fwd(ctx.plan_Q, torch.cat([da, db], dim=-3))
 
 
@@ -237,6 +257,34 @@ def mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, key_shoup, step: int, u,
     return torch.stack([a, b]).to(torch.int32)
 
 
+def blind_rotate_fused_plain(ctx, bkey_hat, ua, a0, b0, seed2=None, prune: int = 0,
+                             gates: int | None = None):
+    """Plain version of the rotate_resident kernel: the whole n-step rotation
+    as `_rotate_kernel` computes it, in int64. When prune == 0 the T-term is
+    carried: the canonical hat of a0 and b0, then each step's val; else it
+    is computed by w-multiplies. Runs tiles of `gates` gates (all at once by
+    default), each with its global gate index in the mask counters, as the
+    kernel's blocks do. ua (B, n) exponents mod 2m; a0, b0 (B, L, m) int64
+    canonical; bkey_hat (n, 2l, 2, L, m) int32. Returns (a, b), int64."""
+    plan = ctx.plan_Q
+    B, n = a0.shape[0], bkey_hat.shape[0]
+    G = gates or B
+    outs = []
+    for g0 in range(0, B, G):
+        a, b = mm.u32(a0[g0:g0 + G]), mm.u32(b0[g0:g0 + G])
+        t = None if prune else (ntt_mod.ntt_fwd(plan, a), ntt_mod.ntt_fwd(plan, b))
+        for k in range(n):
+            ck = mm.u32(bkey_hat[k])
+            d_hat = flatten_ntt_fwd_i64(ctx, a, b, seed2, k, prune, gate0=g0)
+            # the MAC's Shoup products are exact remainders (mm.shoup_mul):
+            # the key's companions are not needed
+            a, b, va, vb = mac_rotate_ntt_inv_i64(ctx, d_hat, ck, ck, ua[g0:g0 + G, k],
+                                                  prune, t)
+            t = None if prune else (va, vb)
+        outs.append((a, b))
+    return torch.cat([o[0] for o in outs]), torch.cat([o[1] for o in outs])
+
+
 # ---------------------------------------------------------------------------
 # Launch plans: each kernel's block shape, chosen from (B, L, m, prune) and
 # the card's SM count. csrc/rotate.cu reads a plan as FwdPlan / MacPlan.
@@ -248,10 +296,11 @@ SMEM_RESERVED = 1_024    # the runtime's share of each resident block
 THREADS_SM = 2_048
 BLOCKS_SM = 32
 REGS_SM = 65_536
-REGS_THREAD = 64         # rotate.cu compiles both kernels to at most this
+REGS_THREAD = 64         # the kernels compile to at most this
 H100_SMS = 132
 FWD_MAX_THREADS = 1024   # rotate.cu FWD_THREADS_MAX
 MAC_THREADS = 256        # rotate.cu MAC_THREADS
+RES_MAX_THREADS = 1024   # rotate_resident.cu RES_THREADS_MAX
 #: A MAC block stages 2(l - prune) key rows and as many d_hat rows per
 #: gate: the key costs about one gate's staging. Each chunk adds a wait
 #: and two barriers, about half a gate's work.
@@ -403,6 +452,88 @@ def mac_plan(B: int, L: int, m: int, prune: int, sms: int = H100_SMS) -> MacPlan
     raise ValueError(f"no mac_rotate_ntt_inv block fits m = {m}")
 
 
+def resident_gate_bytes(L: int, m: int, prune: int) -> int:
+    """Shared memory one gate takes in a rotate_resident block: its 2(l -
+    prune) kept digit polynomials (the first of each operand doubles as its
+    accumulator and val) and, when prune == 0, its carried T (2L more)."""
+    lk = L - prune
+    return 4 * smem_pitch(m, odd=True) * 2 * L * (lk + int(prune == 0))
+
+
+@dataclasses.dataclass(frozen=True)
+class ResidentPlan:
+    """rotate_resident: one block per tile of `gates` gates, looping over all
+    n steps; `threads` a block, as many blocks per SM as shared memory
+    holds and 64 registers a thread allow."""
+
+    gates: int
+    threads: int
+    smem: int
+    grid: int
+    per_sm: int
+    waves: int
+
+    def words(self) -> np.ndarray:
+        return np.array([self.gates, self.threads, self.smem, self.grid], dtype=np.int32)
+
+
+#: A block alone on its SM waits at its own barriers (eight a step at
+#: m = 512) with no other block to fill them: the plan counts it as this
+#: many gates' work more than its own.
+LONE_BLOCK_GATES = 2
+
+
+def _resident_shape(G: int, B: int, L: int, m: int, prune: int, sms: int) -> ResidentPlan:
+    """The plan of G gates a block. The blocks that land on one SM at once
+    (as many as shared memory holds, fewer where the grid cannot fill
+    them) share its 1,024 threads of 64 registers."""
+    smem = G * resident_gate_bytes(L, m, prune)
+    grid = -(-B // G)
+    fit = min(SMEM_SM // (smem + SMEM_RESERVED), BLOCKS_SM)
+    busy = min(fit, -(-grid // sms))
+    threads = max(32, min(RES_MAX_THREADS, REGS_SM // REGS_THREAD // busy) // 32 * 32)
+    per_sm = blocks_per_sm(smem, threads)
+    return ResidentPlan(G, threads, smem, grid, per_sm, -(-grid // (sms * per_sm)))
+
+
+@functools.lru_cache(maxsize=None)
+def resident_plan(B: int, L: int, l: int, m: int, prune: int, sms: int = H100_SMS,
+                  gates: int | None = None) -> ResidentPlan:
+    """Pick G, the gates of a rotate_resident block. The modelled time is the
+    waves times the gates an SM works on at once in a full wave (blocks per
+    SM, or fewer where the grid cannot fill them, times G), but at least G
+    + LONE_BLOCK_GATES: a lone block's latency. Ties go to larger G (fewer
+    reads of the key from L2). At B = 32 one gate a block keeps 32 SMs busy;
+    at Params(64) and B = 4096 two gates a block, two blocks an SM. `gates`
+    forces G. Raises ValueError when one gate's state does not fit a block's
+    shared memory."""
+    if l != L:
+        raise ValueError(f"rotate_resident takes l = L digits, got l = {l}, L = {L}")
+    if not 0 <= prune < L:
+        raise ValueError(f"prune = {prune} must be in [0, L = {L})")
+    per_gate = resident_gate_bytes(L, m, prune)
+    if per_gate > SMEM_BLOCK:
+        raise ValueError(
+            f"rotate_resident: one gate's state at L = {L}, m = {m}, prune = {prune} "
+            f"takes {per_gate:,} bytes of shared memory, beyond a block's limit of "
+            f"{SMEM_BLOCK:,} bytes"
+        )
+    top = min(B, SMEM_BLOCK // per_gate)
+    if gates is not None:
+        if not 1 <= gates <= top:
+            raise ValueError(f"rotate_resident: {gates} gates a block do not fit "
+                             f"({top} at most at B = {B} within {SMEM_BLOCK:,} bytes)")
+        return _resident_shape(gates, B, L, m, prune, sms)
+    best = None
+    for G in range(1, top + 1):
+        pl = _resident_shape(G, B, L, m, prune, sms)
+        busy = min(pl.per_sm, -(-pl.grid // sms))
+        cost = pl.waves * max(busy * G, G + LONE_BLOCK_GATES)
+        if best is None or (cost, -G) < best[0]:
+            best = ((cost, -G), pl)
+    return best[1]
+
+
 @functools.lru_cache(maxsize=None)
 def _sm_count(index: int) -> int:
     return torch.cuda.get_device_properties(index).multi_processor_count
@@ -522,10 +653,11 @@ mac_rotate_ntt_inv.launches = 0
 def blind_rotate_steps(ctx, bkey_hat, bkey_shoup, ua, a0, b0, seed2=None,
                        prune: int = 0, carry: bool = False):
     """The n-step rotation through the two step wrappers: 2n launches on
-    CUDA tensors. ua (B, n) exponents mod 2m; a0, b0 (B, L, m) int64
-    canonical. carry=True takes the T-term from the last step's val (t_mode
-    2; step 0 computes it by w-multiplies and writes it). Returns the
-    accumulators as int64 (B, L, m)."""
+    CUDA tensors (the streamed route; carry=True only where the step pair
+    is timed against rotate_resident). ua (B, n) exponents mod 2m; a0, b0
+    (B, L, m) int64 canonical. carry=True takes the T-term from the last
+    step's val (t_mode 2; step 0 computes it by w-multiplies and writes
+    it). Returns the accumulators as int64 (B, L, m)."""
     assert not (carry and prune), "hat-carry needs prune == 0"
     n = bkey_hat.shape[0]
     acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
@@ -538,3 +670,46 @@ def blind_rotate_steps(ctx, bkey_hat, bkey_shoup, ua, a0, b0, seed2=None,
             ctx, d_hat, bkey_hat, bkey_shoup, k, u_steps[k], prune, t_mode, carry_buf
         )
     return acc[0].to(torch.int64), acc[1].to(torch.int64)
+
+
+def blind_rotate_fused(ctx, bkey_hat, ua, a0, b0, seed2=None, prune: int = 0,
+                       gates: int | None = None):
+    """The whole n-step rotation in one rotate_resident launch on CUDA
+    tensors (counterpart of sgfhe_tpu/ops/fused.blind_rotate_fused); CPU
+    tensors take `blind_rotate_fused_plain` on the same tiles. ua (B, n)
+    exponents mod 2m; a0, b0 (B, L, m) int64 canonical; bkey_hat (n, 2l, 2,
+    L, m) int32, the hat alone (the kernel needs no Shoup companions).
+    gates forces the plan's G; a shape whose state does not fit a block
+    raises ValueError on every device. Returns (a, b) as int64 (B, L, m)."""
+    B, L, m = a0.shape
+    n = bkey_hat.shape[0]
+    dev = a0.device
+    sms = _sm_count(dev.index or 0) if dev.type == "cuda" else H100_SMS
+    plan = resident_plan(B, L, L, m, prune, sms, gates)
+    if dev.type == "cpu":
+        return blind_rotate_fused_plain(ctx, bkey_hat, ua, a0, b0, seed2, prune, plan.gates)
+    _require_cuda(a0)
+    ft, _, _ = _common(ctx, a0)
+    _check("bkey_hat", bkey_hat, (n, 2 * L, 2, L, m), dev)
+    acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
+    u = ua.to(torch.int32).contiguous()
+    _check("ua", u, (B, n), dev)
+    from .. import _build
+
+    lib = _build.load("rotate_resident.cu")
+    out = torch.empty_like(acc)
+    lo, hi = (0, 0) if seed2 is None else (int(seed2[0]) & mm.MASK32, int(seed2[1]) & mm.MASK32)
+    words = plan.words()
+    rc = lib.sg_rotate_resident(
+        acc.data_ptr(), out.data_ptr(), bkey_hat.data_ptr(), u.data_ptr(),
+        ft.tables.data_ptr(), ft.consts.ctypes.data_as(ctypes.c_void_p),
+        B, L, n, m, prune, int(ft.close), int(seed2 is not None), lo, hi,
+        torch.cuda.current_stream().cuda_stream, words.ctypes.data_as(ctypes.c_void_p),
+    )
+    if rc != 0:
+        raise RuntimeError(f"rotate_resident launch failed: cudaError {rc}")
+    blind_rotate_fused.launches += 1
+    return out[0].to(torch.int64), out[1].to(torch.int64)
+
+
+blind_rotate_fused.launches = 0

@@ -1,12 +1,14 @@
 """Cold-start priming (counterpart of sgfhe_tpu/prewarm.py).
 
 On the card, the first bootstrap of a process pays for building the
-rotation kernels (`nvcc` on csrc/rotate.cu, seconds) and the wire codec
-(`g++` on csrc/sgfhe_io.cpp), the context's tables, and the first launch of
-each launch plan. `prewarm(params)` does all of that before real keys or
-data exist: it builds both libraries, makes the context and runs one batch
-of all-zero stand-ins through the production path
-(models/bootstrap.bootstrap_batch) in each requested mode. Values do not
+rotation kernels (`nvcc` on csrc/rotate.cu and csrc/rotate_resident.cu, in
+parallel, seconds) and the wire codec (`g++` on csrc/sgfhe_io.cpp), the
+context's tables, and the first launch of each launch plan. `prewarm(params)`
+does all of that before real keys or data exist: it builds every library,
+makes the context and runs one batch of all-zero stand-ins through the
+production path (models/bootstrap.bootstrap_batch, on the route that
+params' key takes: the one-launch rotate_resident for a key of at most 10
+MiB, the step pair above that) in each requested mode. Values do not
 matter to any of these costs, so the key is all zeros and costs nothing to
 make. Stages narrate to stderr (utils/progress; SGFHE_PROGRESS=0 or
 verbose=False silences them).
@@ -59,8 +61,9 @@ def prewarm(
 
     t0 = time.time()
     if dev.type == "cuda":
-        with progress.stage("build csrc/rotate.cu (nvcc, sm_90a)"):
-            _build.load()
+        with progress.stage(f"build csrc/{', csrc/'.join(_build.SOURCES)} (nvcc, sm_90a)"):
+            for source in _build.SOURCES:
+                _build.load(source)
     with progress.stage("build csrc/sgfhe_io.cpp (g++)"):
         native.load()
     if ctx is None:

@@ -156,6 +156,6 @@ def test_route_follows_device_and_key_size():
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     assert tbs._rotation_route(p64, cpu, 0, False) == "plain"
     assert tbs._rotation_route(p64, cuda, 0, True) == "plain"
-    assert tbs._rotation_route(p64, cuda, 0, False) == "carry"
-    assert tbs._rotation_route(p64, cuda, 1, False) == "wmul"
+    assert tbs._rotation_route(p64, cuda, 0, False) == "resident"
+    assert tbs._rotation_route(p64, cuda, 1, False) == "resident"
     assert tbs._rotation_route(p512, cuda, 0, False) == "wmul"

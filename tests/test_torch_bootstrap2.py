@@ -188,14 +188,14 @@ def test_port_keys_add_and_mul(toy_k1):
 
 def test_rotation_reads_generic_params_fields():
     """The shared rotation's dispatcher and prune guard take scheme-2
-    Params as they are: the toy k = 1 key (4 MiB with companions) stays
-    resident, the toy k = 2 (18 MiB) and paper k = 1 (576 MiB) keys take
-    w-multiplies."""
+    Params as they are: the toy k = 1 key (4 MiB with companions) takes the
+    one-launch resident kernel at every prune, the toy k = 2 (18 MiB) and
+    paper k = 1 (576 MiB) keys the step pair with w-multiplies."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     k1, k2, paper = (ts2.Params.create(1, 64), ts2.Params.create(2, 64), ts2.Params.create(1))
     assert tbs._rotation_route(k1, cpu, 0, False) == "plain"
-    assert tbs._rotation_route(k1, cuda, 0, False) == "carry"
-    assert tbs._rotation_route(k1, cuda, 1, False) == "wmul"
+    assert tbs._rotation_route(k1, cuda, 0, False) == "resident"
+    assert tbs._rotation_route(k1, cuda, 1, False) == "resident"
     assert tbs._rotation_route(k2, cuda, 0, False) == "wmul"
     assert tbs._rotation_route(paper, cuda, 0, False) == "wmul"
     assert tbs._rotation_route(paper, cuda, 0, True) == "plain"

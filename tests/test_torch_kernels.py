@@ -1,4 +1,5 @@
-"""The CUDA rotation kernels against the twin, bit for bit, on a card.
+"""The CUDA rotation kernels (the step pair and rotate_resident) against
+the twin or their plain versions, bit for bit, on a card.
 
 These tests need a CUDA device (the kernels have no CPU mode) and skip
 without one. They import neither JAX nor the JAX package, so they run on a
@@ -61,6 +62,40 @@ def test_kernels_equal_twin_on_card(prune, seed2, carry):
     assert after == (before[0] + params.n, before[1] + params.n)
     for w, gt in zip(want, got):
         assert torch.equal(w, gt)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "prune,seed2,big", [(0, None, False), (1, None, False), (2, None, False),
+                        (0, (7, 8), False), (1, (7, 8), False), (0, None, True)],
+    ids=["exact", "prune1", "prune2", "randomized", "randomized-prune1", "near-2^29"])
+def test_resident_kernel_equals_plain_on_card(prune, seed2, big):
+    """rotate_resident (one launch for all n steps) against its plain
+    version at Params(64) with port-made keys, in every mode, on a batch
+    whose last gate tile is partial (and on near-2^29 moduli with l = 3)."""
+    dev = _card()
+    params = T.Params.create(64)
+    if big:
+        mods = primes.find_rns_primes(2 * params.m, 1 << 86, (1 << 87) - 1, 3)
+        params = dataclasses.replace(params, moduli=mods)
+    ctx = T.make_context(params, device=dev)
+    g = torch.Generator().manual_seed(4)
+    sk = T.PrivateKey.create(params, g, device=dev)
+    bk = T.BootstrapKey.create(ctx, sk, g)
+    rng = np.random.default_rng(11)
+    B, L, m = 7, params.num_limbs, params.m
+    p = np.array(params.moduli).reshape(L, 1)
+    ua = torch.as_tensor(rng.integers(0, 2 * m, (B, params.n)), device=dev)
+    a0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
+    b0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
+    want = tfused.blind_rotate_fused_plain(ctx, bk.hat, ua, a0, b0, seed2, prune)
+    for gates in (None, 3):
+        before = tfused.blind_rotate_fused.launches
+        got = tfused.blind_rotate_fused(ctx, bk.hat, ua, a0, b0, seed2, prune, gates)
+        torch.cuda.synchronize()
+        assert tfused.blind_rotate_fused.launches == before + 1
+        for w, gt in zip(want, got):
+            assert torch.equal(w, gt), gates
 
 
 @pytest.mark.cuda
@@ -138,7 +173,8 @@ def test_step_kernels_equal_plain_on_card(L, m, ragged):
 @pytest.mark.parametrize("k", [1, 2])
 def test_scheme2_add_with_carry_on_card_equals_twin(k):
     """Scheme 2 at the toy n = 64 with port-made keys: the k = 1 key (4
-    MiB) takes the carried T-term, the k = 2 key (18 MiB) w-multiplies;
+    MiB) takes rotate_resident, one launch a rotation, the k = 2 key (18
+    MiB) the step pair with w-multiplies;
     the kernels' output equals the twin's in deterministic and randomized
     mode and decrypts right."""
     dev = _card()
@@ -148,16 +184,19 @@ def test_scheme2_add_with_carry_on_card_equals_twin(k):
     g = torch.Generator().manual_seed(10 + k)
     sk = S2.PrivateKey.create(params, g, device=dev)
     bk = S2.BootstrapKey.create(ctx, sk, g)
-    assert tbs._rotation_route(params, dev, 0, False) == ("carry" if k == 1 else "wmul")
+    resident = k == 1
+    assert tbs._rotation_route(params, dev, 0, False) == ("resident" if resident else "wmul")
     x = torch.randint(0, 2**k, (params.n,), generator=g)
     y = torch.randint(0, 2**k, (params.n,), generator=g)
     lx = B2.split_ciphertext(params, *S2.encrypt(sk, g, x))
     ly = B2.split_ciphertext(params, *S2.encrypt(sk, g, y))
     z = (x + y).to(dev)
     for seed2 in (None, (0x12345678, 0x9ABCDEF0)):
-        before = tfused.flatten_ntt_fwd.launches
+        before = tfused.blind_rotate_fused.launches, tfused.flatten_ntt_fwd.launches
         got = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2)
-        assert tfused.flatten_ntt_fwd.launches == before + params.n
+        after = tfused.blind_rotate_fused.launches, tfused.flatten_ntt_fwd.launches
+        assert after == ((before[0] + 1, before[1]) if resident
+                         else (before[0], before[1] + params.n))
         want = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2, plain=True)
         for w, gt in zip(want, got):
             assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
