@@ -18,10 +18,11 @@ arithmetic over its digits), the boolean-circuit layer (`circuit`:
 the wire frames and npz checkpoints of keys and ciphertexts (`serialize`,
 byte for byte the JAX package's, over the C++ codec of `native`), and the
 tooling: `prewarm` (cold-start priming), `utils.progress` (stage
-narration, SGFHE_PROGRESS), `utils.profiling` (`timeit`, `trace`,
-`op_cost`), the golden model `refimpl.golden`, and the single-card
-examples (`examples`: adder, depth, errors, scheme2_demo, scheme2_add,
-scaling, scheme2_dist), and the multi-device layer (`parallel`: meshes,
+narration, SGFHE_PROGRESS), `utils.profiling` (`timeit`, `trace`, and
+the program's spans: `span`, `spans`, `on_trace_clock`), the golden
+model `refimpl.golden`, and the single-card examples (`examples`:
+adder, depth, errors, scheme2_demo, scheme2_add, scaling,
+scheme2_dist), and the multi-device layer (`parallel`: meshes,
 the process group, sharded gate batches and packs, and the
 tensor-parallel rotation, on torch.distributed). Scheme 2 runs on the
 card at every k of the paper, 1 to 5, at n = 1024.

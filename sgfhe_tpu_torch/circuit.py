@@ -41,6 +41,7 @@ import torch
 from .models import bootstrap as bs
 from .models.scheme1 import LWE, EncryptedBit
 from .ops import prg
+from .utils import profiling
 
 # wire sources
 _INPUT = "input"
@@ -221,82 +222,84 @@ def evaluate_internal(circuit: Circuit, params, ctx, bkey, inputs, level_seeds=N
     """`evaluate` with each level's seed words given: level_seeds is None
     (deterministic) or one pair of Threefry key words for each level of
     `circuit.schedule()`, used as given."""
-    if len(inputs) != circuit.num_inputs:
-        raise ValueError(f"circuit has {circuit.num_inputs} inputs, got {len(inputs)}")
-    n = params.n
-    batched = None
-    in_lwes = []
-    for eb in inputs:
-        a = eb.lwe.a
-        is_b = a.ndim == 2
-        if batched is None:
-            batched = is_b
-        elif batched != is_b:
-            raise ValueError("all inputs must be uniformly batched or not")
-        if is_b and a.shape[0] != inputs[0].lwe.a.shape[0]:
-            raise ValueError("all batched inputs must share the batch size")
-        in_lwes.append(LWE(a, eb.lwe.b) if is_b else LWE(a[None], torch.atleast_1d(eb.lwe.b)))
-    B = in_lwes[0].a.shape[0] if in_lwes else 1
-    dev = in_lwes[0].a.device if in_lwes else ctx.device
+    with profiling.span("circuit"):
+        if len(inputs) != circuit.num_inputs:
+            raise ValueError(f"circuit has {circuit.num_inputs} inputs, got {len(inputs)}")
+        n = params.n
+        batched = None
+        in_lwes = []
+        for eb in inputs:
+            a = eb.lwe.a
+            is_b = a.ndim == 2
+            if batched is None:
+                batched = is_b
+            elif batched != is_b:
+                raise ValueError("all inputs must be uniformly batched or not")
+            if is_b and a.shape[0] != inputs[0].lwe.a.shape[0]:
+                raise ValueError("all batched inputs must share the batch size")
+            in_lwes.append(LWE(a, eb.lwe.b) if is_b else LWE(a[None], torch.atleast_1d(eb.lwe.b)))
+        B = in_lwes[0].a.shape[0] if in_lwes else 1
+        dev = in_lwes[0].a.device if in_lwes else ctx.device
 
-    values: dict[int, LWE] = {}
+        values: dict[int, LWE] = {}
 
-    def lwe_of(i: int) -> LWE:
-        if i in values:
-            return values[i]
-        w = circuit._wires[i]
-        if w.op == _INPUT:
-            v = in_lwes[w.args[0]]
-        elif w.op == _CONST:
-            v = LWE(torch.zeros((B, n), dtype=torch.int64, device=dev),
-                    torch.full((B,), w.args[0] * params.Dr, dtype=torch.int64, device=dev))
-        elif w.op == _NOT:
-            v = _neg_lwe(params, lwe_of(w.args[0]))
-        else:
-            raise RuntimeError(f"gate wire {i} not yet materialized (level ordering bug)")
-        values[i] = v
-        return v
+        def lwe_of(i: int) -> LWE:
+            if i in values:
+                return values[i]
+            w = circuit._wires[i]
+            if w.op == _INPUT:
+                v = in_lwes[w.args[0]]
+            elif w.op == _CONST:
+                v = LWE(torch.zeros((B, n), dtype=torch.int64, device=dev),
+                        torch.full((B,), w.args[0] * params.Dr, dtype=torch.int64, device=dev))
+            elif w.op == _NOT:
+                v = _neg_lwe(params, lwe_of(w.args[0]))
+            else:
+                raise RuntimeError(f"gate wire {i} not yet materialized (level ordering bug)")
+            values[i] = v
+            return v
 
-    schedule = circuit.schedule()
-    if level_seeds is not None and len(level_seeds) != len(schedule):
-        raise ValueError(f"{len(schedule)} levels, {len(level_seeds)} seed-word pairs")
-    # gates of the live set, grouped by (level, pair) for scatter
-    gate_index: dict[tuple[int, int], dict[str, int]] = {}
-    for i, w in enumerate(circuit._wires):
-        if w.op in _GATES:
-            gate_index.setdefault(w.args, {})[w.op] = i
+        schedule = circuit.schedule()
+        if level_seeds is not None and len(level_seeds) != len(schedule):
+            raise ValueError(f"{len(schedule)} levels, {len(level_seeds)} seed-word pairs")
+        # gates of the live set, grouped by (level, pair) for scatter
+        gate_index: dict[tuple[int, int], dict[str, int]] = {}
+        for i, w in enumerate(circuit._wires):
+            if w.op in _GATES:
+                gate_index.setdefault(w.args, {})[w.op] = i
 
-    for lvl, pairs in enumerate(schedule):
-        if not pairs:
-            continue
-        a1 = torch.cat([lwe_of(x).a for x, _ in pairs])
-        b1 = torch.cat([lwe_of(x).b for x, _ in pairs])
-        a2 = torch.cat([lwe_of(y).a for _, y in pairs])
-        b2 = torch.cat([lwe_of(y).b for _, y in pairs])
-        # pad the level's batch to a power of two with zero LWEs, as the
-        # JAX package does (there to bound its compiles); the padded lanes
-        # come after every real one, whose masks count gates by global
-        # index, so they change no real output
-        width = a1.shape[0]
-        pw = 1 << (width - 1).bit_length()
-        if pw != width:
-            a1, b1, a2, b2 = (_pad_rows(x, pw) for x in (a1, b1, a2, b2))
-        seed2 = level_seeds[lvl] if level_seeds is not None else None
-        triple = bs.bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup, a1, b1, a2, b2,
-                                       seed2, plain=plain)
-        by_op = dict(zip(_GATES, (bs._reduce_lwe(params, ctx, t) for t in triple)))
-        for j, pair in enumerate(pairs):
-            sl = slice(j * B, (j + 1) * B)
-            for op, wire in gate_index.get(pair, {}).items():
-                if circuit._wires[wire].level == lvl + 1:
-                    out = by_op[op]
-                    values[wire] = LWE(out.a[sl], out.b[sl])
+        for lvl, pairs in enumerate(schedule):
+            if not pairs:
+                continue
+            with profiling.span("circuit.level"):
+                a1 = torch.cat([lwe_of(x).a for x, _ in pairs])
+                b1 = torch.cat([lwe_of(x).b for x, _ in pairs])
+                a2 = torch.cat([lwe_of(y).a for _, y in pairs])
+                b2 = torch.cat([lwe_of(y).b for _, y in pairs])
+                # pad the level's batch to a power of two with zero LWEs, as the
+                # JAX package does (there to bound its compiles); the padded lanes
+                # come after every real one, whose masks count gates by global
+                # index, so they change no real output
+                width = a1.shape[0]
+                pw = 1 << (width - 1).bit_length()
+                if pw != width:
+                    a1, b1, a2, b2 = (_pad_rows(x, pw) for x in (a1, b1, a2, b2))
+                seed2 = level_seeds[lvl] if level_seeds is not None else None
+                triple = bs.bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup,
+                                               a1, b1, a2, b2, seed2, plain=plain)
+                by_op = dict(zip(_GATES, (bs._reduce_lwe(params, ctx, t) for t in triple)))
+                for j, pair in enumerate(pairs):
+                    sl = slice(j * B, (j + 1) * B)
+                    for op, wire in gate_index.get(pair, {}).items():
+                        if circuit._wires[wire].level == lvl + 1:
+                            out = by_op[op]
+                            values[wire] = LWE(out.a[sl], out.b[sl])
 
-    outs = []
-    for i in circuit._outputs:
-        v = lwe_of(i)
-        outs.append(EncryptedBit(v if batched else LWE(v.a[0], v.b[0])))
-    return outs
+        outs = []
+        for i in circuit._outputs:
+            v = lwe_of(i)
+            outs.append(EncryptedBit(v if batched else LWE(v.a[0], v.b[0])))
+        return outs
 
 
 def evaluate(circuit: Circuit, params, ctx, bkey, inputs, seed_words=None,

@@ -38,6 +38,7 @@ from ..ops import ntt as ntt_mod
 from ..ops import poly as pol
 from ..ops import prg
 from ..ops import rns as rns_mod
+from ..utils import profiling
 from .params import Params, prune_error_bound
 from .scheme1 import LWE, RLWE, Ciphertext, EncryptedBit, SchemeContext
 
@@ -82,22 +83,23 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
     """The n-step rotation: (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G) for
     k = 0..n-1, batched. ua: (B, n) exponents mod 2m; a_acc, b_acc:
     (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32."""
-    n = params.n
-    check_prune(params, prune)
-    route = _rotation_route(params, a_acc.device, prune, plain)
-    if route == "resident":
-        return fused_mod.blind_rotate_fused(ctx, bkey_hat, ua, a_acc, b_acc, seed2, prune)
-    if route == "wmul":
-        fused_mod.check_envelope(params)
-        return fused_mod.blind_rotate_steps(
-            ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
-        )
-    for k in range(n):
-        a_acc, b_acc = _external_step(
-            params, ctx, a_acc, b_acc, mm.u32(bkey_hat[k]), mm.u32(bkey_shoup[k]),
-            ua[:, k], seed2, k, prune,
-        )
-    return a_acc, b_acc
+    with profiling.span("rotate"):
+        n = params.n
+        check_prune(params, prune)
+        route = _rotation_route(params, a_acc.device, prune, plain)
+        if route == "resident":
+            return fused_mod.blind_rotate_fused(ctx, bkey_hat, ua, a_acc, b_acc, seed2, prune)
+        if route == "wmul":
+            fused_mod.check_envelope(params)
+            return fused_mod.blind_rotate_steps(
+                ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
+            )
+        for k in range(n):
+            a_acc, b_acc = _external_step(
+                params, ctx, a_acc, b_acc, mm.u32(bkey_hat[k]), mm.u32(bkey_shoup[k]),
+                ua[:, k], seed2, k, prune,
+            )
+        return a_acc, b_acc
 
 
 def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
@@ -110,33 +112,34 @@ def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     rotate(ua, a_acc, b_acc, seed2=, prune=) (the tensor-parallel one of
     parallel/rotate_dist.py, which brings its own key). Returns three LWEs
     over Q as ((B, L, n), (B, L)) pairs: AND, OR, XOR."""
-    n, m, L = params.n, params.m, params.num_limbs
-    mask = params.mask_r
-    plan = ctx.plan_Q
-    ua = (a1 + a2) & mask
-    ub = (b1 + b2) & mask
-    batch = ua.shape[0]
-    # b0 = t(x) * DQ~ * x^{-ub}, rotated in the hat domain
-    tpoly_hat_b = ctx.tpoly_dq_hat.expand(batch, L, m)
-    shift = (2 * m - ub) & (2 * m - 1)
-    b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, tpoly_hat_b, shift))
-    a_acc = torch.zeros((batch, L, m), dtype=torch.int64, device=b_acc.device)
+    with profiling.span("bootstrap"):
+        n, m, L = params.n, params.m, params.num_limbs
+        mask = params.mask_r
+        plan = ctx.plan_Q
+        ua = (a1 + a2) & mask
+        ub = (b1 + b2) & mask
+        batch = ua.shape[0]
+        # b0 = t(x) * DQ~ * x^{-ub}, rotated in the hat domain
+        tpoly_hat_b = ctx.tpoly_dq_hat.expand(batch, L, m)
+        shift = (2 * m - ub) & (2 * m - 1)
+        b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, tpoly_hat_b, shift))
+        a_acc = torch.zeros((batch, L, m), dtype=torch.int64, device=b_acc.device)
 
-    if rotate is None:
-        rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
-                                   plain=plain)
-    a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
+        if rotate is None:
+            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
+                                       plain=plain)
+        a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
 
-    i_and = 3 * m // 4
-    i_or = m // 4
-    p = plan.p
-    a_and = pol.extract(a_acc, i_and, n, p)
-    b_and = mm.addmod(ctx.dq_tilde[:, 0], b_acc[..., i_and], p[:, 0])
-    a_or = mm.negmod(pol.extract(a_acc, i_or, n, p), p)
-    b_or = mm.submod(ctx.dq_tilde[:, 0], b_acc[..., i_or], p[:, 0])
-    a_xor = mm.submod(a_or, a_and, p)
-    b_xor = mm.submod(b_or, b_and, p[:, 0])
-    return (a_and, b_and), (a_or, b_or), (a_xor, b_xor)
+        i_and = 3 * m // 4
+        i_or = m // 4
+        p = plan.p
+        a_and = pol.extract(a_acc, i_and, n, p)
+        b_and = mm.addmod(ctx.dq_tilde[:, 0], b_acc[..., i_and], p[:, 0])
+        a_or = mm.negmod(pol.extract(a_acc, i_or, n, p), p)
+        b_or = mm.submod(ctx.dq_tilde[:, 0], b_acc[..., i_or], p[:, 0])
+        a_xor = mm.submod(a_or, a_and, p)
+        b_xor = mm.submod(b_or, b_and, p[:, 0])
+        return (a_and, b_and), (a_or, b_or), (a_xor, b_xor)
 
 
 def _reduce_lwe(params: Params, ctx: SchemeContext, lwe_q) -> LWE:
@@ -159,12 +162,13 @@ def bootstrap_batch(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     repeated calls never replay a mask stream; pass `epoch` to pin it.
     prune > 0 drops the `prune` lowest digit rows (approximate gadget; the
     admitted noise is asserted < Dr/16)."""
-    seed2 = prg.fold_epoch(seed_words, epoch)
-    triple = bootstrap_internal(
-        params, ctx, bkey_hat, bkey_shoup, lwe1.a, lwe1.b, lwe2.a, lwe2.b,
-        seed2, prune, plain=plain,
-    )
-    return tuple(_reduce_lwe(params, ctx, t) for t in triple)
+    with profiling.span("gates"):
+        seed2 = prg.fold_epoch(seed_words, epoch)
+        triple = bootstrap_internal(
+            params, ctx, bkey_hat, bkey_shoup, lwe1.a, lwe1.b, lwe2.a, lwe2.b,
+            seed2, prune, plain=plain,
+        )
+        return tuple(_reduce_lwe(params, ctx, t) for t in triple)
 
 
 def bootstrap(params, ctx, bkey, enc_bit1: EncryptedBit, enc_bit2: EncryptedBit,

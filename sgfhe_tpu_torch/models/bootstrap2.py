@@ -36,6 +36,7 @@ from ..ops import ntt as ntt_mod
 from ..ops import poly as pol
 from ..ops import prg
 from ..ops import rns as rns_mod
+from ..utils import profiling
 from .bootstrap import blind_rotate
 from .scheme1 import LWE
 from .scheme2 import BootstrapKey, Params, PrivateKey, Scheme2Context
@@ -118,19 +119,20 @@ def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
     (ua (M, n), ub (M,) mod r), extract coefficient 0, switch Q -> r.
     rotate: None (`blind_rotate` on bkey_hat/bkey_shoup) or another
     rotation, as in models/bootstrap.bootstrap_internal."""
-    n, m = params.n, params.m
-    plan = ctx.plan_Q
-    shift = (2 * m - ub) & (2 * m - 1)
-    b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, t0, shift))
-    a_acc = torch.zeros_like(b_acc)
-    if rotate is None:
-        rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
-                                   plain=plain)
-    a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
-    a_q = pol.extract(a_acc, 0, n, plan.p)  # (M, L, n)
-    a_r = rns_mod.rescale_exact(ctx.rns_Q, a_q, params.r, params.moduli)
-    b_r = rns_mod.rescale_exact(ctx.rns_Q, b_acc[..., :1], params.r, params.moduli)[..., 0]
-    return LWE(a_r, b_r)
+    with profiling.span("bootstrap"):
+        n, m = params.n, params.m
+        plan = ctx.plan_Q
+        shift = (2 * m - ub) & (2 * m - 1)
+        b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, t0, shift))
+        a_acc = torch.zeros_like(b_acc)
+        if rotate is None:
+            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
+                                       plain=plain)
+        a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
+        a_q = pol.extract(a_acc, 0, n, plan.p)  # (M, L, n)
+        a_r = rns_mod.rescale_exact(ctx.rns_Q, a_q, params.r, params.moduli)
+        b_r = rns_mod.rescale_exact(ctx.rns_Q, b_acc[..., :1], params.r, params.moduli)[..., 0]
+        return LWE(a_r, b_r)
 
 
 def bootstrap_internal(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
@@ -191,8 +193,9 @@ def add_with_carry(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe1
     """k-bit addition with carry: refreshed encryptions of (x + y + c) mod
     2^k and of the carry-out (x + y + c) >= 2^k, from one rotation (the two
     output functions ride as adjacent lanes)."""
-    return _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry,
-                           prg.fold_epoch(seed_words, epoch), prune, plain=plain)
+    with profiling.span("digits"):
+        return _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry,
+                               prg.fold_epoch(seed_words, epoch), prune, plain=plain)
 
 
 def apply_lut(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe: LWE, lut,

@@ -16,6 +16,7 @@ import numpy as np
 import torch
 
 from ..utils import primes as pr
+from ..utils import profiling
 from . import modmath as mm
 from . import prg
 
@@ -306,44 +307,45 @@ def rescale_exact(
     quotient for any estimate within K of it. The float32 rounding may
     differ between devices; the ladder absorbs it, so the output does not.
     K = 1 through n = 8192 and 2 at n = 16384."""
-    assert new_max & (new_max - 1) == 0, "new_max must be a power of two"
-    moduli = tuple(int(p) for p in moduli)
-    Q = 1
-    weights = []
-    for p in moduli:
-        weights.append(Q)
-        Q *= p
-    if round_result:
-        A, B, C = 2 * new_max, Q, 2 * Q
-    else:
-        A, B, C = new_max, 0, Q
-    # float32 error budget: |est - v| < 3(L+2)*A*2^-23 (see the JAX version)
-    K = max(1, -(-(3 * (len(moduli) + 2) * A) // (1 << 23)))
-    assert K <= 4, (
-        f"rescale_exact: new_max={new_max} exceeds the float32 estimate "
-        f"error budget for L={len(moduli)} limbs (K={K} > 4)"
-    )
-    nl = (A * (Q - 1) + B + (K + 1) * C).bit_length() // 32 + 1
+    with profiling.span("switch"):
+        assert new_max & (new_max - 1) == 0, "new_max must be a power of two"
+        moduli = tuple(int(p) for p in moduli)
+        Q = 1
+        weights = []
+        for p in moduli:
+            weights.append(Q)
+            Q *= p
+        if round_result:
+            A, B, C = 2 * new_max, Q, 2 * Q
+        else:
+            A, B, C = new_max, 0, Q
+        # float32 error budget: |est - v| < 3(L+2)*A*2^-23 (see the JAX version)
+        K = max(1, -(-(3 * (len(moduli) + 2) * A) // (1 << 23)))
+        assert K <= 4, (
+            f"rescale_exact: new_max={new_max} exceeds the float32 estimate "
+            f"error budget for L={len(moduli)} limbs (K={K} > 4)"
+        )
+        nl = (A * (Q - 1) + B + (K + 1) * C).bit_length() // 32 + 1
 
-    digits = mixed_radix_digits(ctx, x)
-    est = None
-    for i, d in enumerate(digits):
-        f = float(np.float32(A * weights[i] / C))
-        term = d.to(torch.float32) * f
-        est = term if est is None else est + term
-    if B:
-        est = est + float(np.float32(B / C))
-    est = torch.clamp(est, min=0.0)
-    q_est = torch.floor(est).to(torch.int64)
+        digits = mixed_radix_digits(ctx, x)
+        est = None
+        for i, d in enumerate(digits):
+            f = float(np.float32(A * weights[i] / C))
+            term = d.to(torch.float32) * f
+            est = term if est is None else est + term
+        if B:
+            est = est + float(np.float32(B / C))
+        est = torch.clamp(est, min=0.0)
+        q_est = torch.floor(est).to(torch.int64)
 
-    acc = [torch.full_like(q_est, v) for v in _limbs_of_int(B + K * C, nl)]
-    for i, d in enumerate(digits):
-        acc = _mll_add(acc, _mll_mul_const(d, A * weights[i], nl))
-    acc = _mll_add(acc, _mll_neg(_mll_mul_const(q_est, C, nl)))
-    q = q_est - K
-    for i in range(1, 2 * K + 1):
-        q = q + _mll_ge_const(acc, i * C).to(torch.int64)
-    return q & (new_max - 1)
+        acc = [torch.full_like(q_est, v) for v in _limbs_of_int(B + K * C, nl)]
+        for i, d in enumerate(digits):
+            acc = _mll_add(acc, _mll_mul_const(d, A * weights[i], nl))
+        acc = _mll_add(acc, _mll_neg(_mll_mul_const(q_est, C, nl)))
+        q = q_est - K
+        for i in range(1, 2 * K + 1):
+            q = q + _mll_ge_const(acc, i * C).to(torch.int64)
+        return q & (new_max - 1)
 
 
 def rescale_wide(new_max: int, x: torch.Tensor, old_max: int,

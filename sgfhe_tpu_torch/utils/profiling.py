@@ -6,10 +6,27 @@
 - `trace(path)`        context manager around `torch.profiler`: writes a
                        Chrome trace (view it in Perfetto or chrome://tracing)
                        under `path`.
-- `op_cost(params)`    the JAX package's analytic per-gate cost model of one
-                       blind rotation, in Shoup-multiply equivalents (SME),
-                       and the key bytes streamed: arithmetic on `Params`,
-                       equal to the JAX function's output.
+- `span(name)`        one of the program's own spans, at a layer boundary:
+                       while a `torch.profiler` profile records in the
+                       process (`trace`, or any `torch.profiler.profile`), a
+                       `record_function("sgfhe:<name>")` range in the
+                       profiler's trace and a (name, start, end) entry in
+                       the record; otherwise a check of the profiler's flag.
+- `spans()`            the record: the spans that ended since `trace()` last
+                       began.
+- `on_trace_clock(record, t)` the record's spans in the seconds of an
+                       exported Chrome trace of the same window.
+
+The program's spans, from the entry points down: `gates`
+(models/bootstrap.bootstrap_batch), `digits` (models/bootstrap2.
+add_with_carry) and `circuit` (circuit.evaluate_internal) around a call;
+`circuit.level` one level of a circuit (gather, pad, bootstrap, switch,
+scatter); `bootstrap` one batched rotation with its test vectors and
+extraction (models/bootstrap.bootstrap_internal, models/bootstrap2.
+_rotate_extract); `rotate` the blind rotation (models/bootstrap.
+blind_rotate); `switch` one exact Q->r switch (ops/rns.rescale_exact). In
+Perfetto the `sgfhe:` ranges sit on the host's thread above the card's
+kernels, on one clock.
 
 The JAX module's `measure_sme_rate` is not ported. It times a jitted chain
 of Shoup multiplies on the TPU's vector unit; an eager PyTorch copy would
@@ -23,9 +40,22 @@ from __future__ import annotations
 import contextlib
 import os
 import time
-from dataclasses import dataclass
+from collections import deque
 
 import torch
+from torch.profiler import record_function
+
+#: Most spans the record holds; past it the oldest are dropped.
+RECORD_CAP = 1 << 16
+#: libkineto puts an exported trace's zero (its `baseTimeNanoseconds`) on a
+#: whole multiple of this many seconds of the Unix clock (its
+#: ChromeTraceBaseTime; torch.profiler's `_trimester_base_ns`).
+TRACE_BASE_PERIOD_S = 7_889_238
+
+_enabled = torch.autograd._profiler_enabled
+#: (name, start_ns, end_ns) of each span, `time.time_ns()` readings, in the
+#: order the spans ended
+_RECORD: deque = deque(maxlen=RECORD_CAP)
 
 
 def _fence() -> None:
@@ -51,13 +81,15 @@ def timeit(fn, *args, iters: int = 5, warmup: int = 1):
 def trace(path: str):
     """Capture a trace: `with trace('traces'): run()` writes
     traces/trace-<pid>-<n>.json (CPU ops, and the card's kernels when CUDA
-    is available)."""
+    is available), with the program's `sgfhe:` spans; `spans()` holds the
+    window's record afterwards."""
     from torch.profiler import ProfilerActivity, profile
 
     activities = [ProfilerActivity.CPU]
     if torch.cuda.is_available():
         activities.append(ProfilerActivity.CUDA)
     os.makedirs(path, exist_ok=True)
+    _RECORD.clear()
     with profile(activities=activities) as prof:
         yield prof
         _fence()
@@ -65,61 +97,54 @@ def trace(path: str):
     prof.export_chrome_trace(os.path.join(path, f"trace-{os.getpid()}-{n}.json"))
 
 
-# Op weights in Shoup-multiply equivalents, the JAX package's: one
-# shoup_mul = mulhi (4 u16 multiplies + ~6 adds/shifts) + 2 low multiplies
-# + subtract + select, about 15 elementary u32 vector ops; the others are
-# scaled against that.
-_W_SHOUP = 1.0
-_W_MODU32 = 0.6     # mulhi + mul + 2 cond-subtracts
-_W_ADDSEL = 0.15    # add/sub/compare/select
+class span:
+    """`with span("rotate"):` records one of the program's spans (module
+    docstring) while a profile records. The profiler's flag is read when
+    the span is made; off, the span is one shared inert context: no range,
+    no clock read, no entry."""
+
+    __slots__ = ("name", "_range", "_start_ns")
+
+    def __new__(cls, name: str):
+        if not _enabled():
+            return _OFF
+        self = object.__new__(cls)
+        self.name = name
+        return self
+
+    def __enter__(self) -> None:
+        self._range = record_function("sgfhe:" + self.name)
+        self._start_ns = time.time_ns()
+        self._range.__enter__()
+
+    def __exit__(self, *exc) -> None:
+        self._range.__exit__(*exc)
+        _RECORD.append((self.name, self._start_ns, time.time_ns()))
 
 
-@dataclass(frozen=True)
-class GateCost:
-    sme_per_gate: float        # Shoup-multiply equivalents per gate (3 gates)
-    ntt_transforms: int        # length-m limb-transforms per gate
-    key_bytes: int             # bootstrap-key bytes (values + Shoup)
-    acc_bytes: int             # accumulator working set per gate
+_OFF = contextlib.nullcontext()
 
 
-def op_cost(params, prune: int = 0) -> GateCost:
-    """Analytic per-gate cost of one bootstrap pass, the JAX package's model
-    of its fused kernel: n steps of [flatten x2, fwd NTT on 2(l-prune) digit
-    rows, gadget accumulation, monomial ladder, inv NTT on 2 columns].
-    prune models the approximate-gadget fast mode (dropped rows cost no
-    NTT/key-mul/embed work; the extraction chain still peels them)."""
-    n, l, L, m = params.n, params.num_digits, params.num_limbs, params.m
-    m1 = max(1, m // 128)
-    S = m.bit_length() - 1
-    maj = m1.bit_length() - 1          # butterfly stages (1 shoup / 2 elems)
-    lane = S - maj                     # roll+select stages (1 shoup / elem)
-    p_bits = max(params.moduli).bit_length()
-    # lazy-reduction resets: bound doubles per stage, reset when 2*c*p > 2^32
-    reset_every = max(1, 31 - p_bits)
+def spans() -> list[tuple[str, int, int]]:
+    """The record: (name, start_ns, end_ns) of every span that ended since
+    `trace()` last began (at most RECORD_CAP, the newest), in the order
+    they ended. Reading it leaves it as it is. Only `trace()` starts it
+    anew: windows of a `torch.profiler.profile` opened directly (or the
+    cycles of its `schedule`) add to it."""
+    return list(_RECORD)
 
-    elems = L * m                      # one limb-spread polynomial
-    # forward NTT per row: pre-twist + stages + periodic Barrett resets
-    fwd_row = (
-        elems * _W_SHOUP
-        + maj * (elems / 2 * _W_SHOUP + elems * 2 * _W_ADDSEL)
-        + lane * (elems * _W_SHOUP + elems * 3 * _W_ADDSEL)
-        + (S / reset_every) * elems * _W_MODU32
-    )
-    inv_col = fwd_row  # same stage structure + post-twist ~ pre-twist
-    # flatten (a and b): extraction chain on single-limb rows + re-embed
-    lk = l - prune                     # kept digit rows per operand
-    chain = sum(i for i in range(L)) * (m * (_W_SHOUP + _W_MODU32 + _W_ADDSEL))
-    embed = lk * (elems * (_W_MODU32 + _W_ADDSEL))
-    flatten2 = 2 * (chain + embed)
-    # gadget accumulation: 2lk rows x 2 cols key muls + lk x 2 w-muls + adds
-    accum = (2 * lk * 2 + lk * 2) * elems * (_W_SHOUP + _W_ADDSEL)
-    # monomial ladder: log2(2m) shoup+select on 2 columns
-    ladder = 2 * (2 * m).bit_length() * elems * (_W_SHOUP + 2 * _W_ADDSEL)
 
-    per_step = flatten2 + 2 * lk * fwd_row + accum + ladder + 2 * inv_col
-    return GateCost(
-        sme_per_gate=n * per_step,
-        ntt_transforms=n * (2 * lk + 2) * L,
-        key_bytes=n * (2 * lk) * 2 * L * m * 4 * 2,
-        acc_bytes=2 * L * m * 4,
-    )
+def on_trace_clock(record, t_in_window_s: float) -> list[tuple[float, float]]:
+    """(start, end) of each span of `record` in seconds on the clock of a
+    Chrome trace that torch.profiler exported from the same window
+    (`export_chrome_trace`: an event's `ts` is microseconds after the
+    trace's `baseTimeNanoseconds`), given any time of that window in the
+    trace's seconds, t_in_window_s. The trace's zero is the whole multiple
+    of TRACE_BASE_PERIOD_S nearest to the first span's start less
+    t_in_window_s. So a span lies, in a viewer such as Perfetto, where its
+    `sgfhe:` range does, within microseconds."""
+    if not record:
+        return []
+    period = TRACE_BASE_PERIOD_S * 10**9
+    base = round((record[0][1] - t_in_window_s * 1e9) / period) * period
+    return [((s - base) / 1e9, (e - base) / 1e9) for _, s, e in record]
