@@ -5,7 +5,11 @@ JAX package's key (exact, pruned and randomized modes, one case against the
 Pallas kernel in interpret mode, a ragged last tile), and its launch plan
 `resident_plan` over every shape a resident-size key can have.
 tests/test_torch_kernels.py holds the CUDA kernel against this plain
-version on a card."""
+version on a card. Last, the gate path through that route: `bootstrap_batch`
+on 8 gates with `_rotation_route` made to answer "resident" runs the plain
+version on the CPU, gives the `plain` route's answers bit for bit, and
+decrypts to AND, OR and XOR by the benchmark's numpy reference
+(fhebench/reference/)."""
 
 import itertools
 
@@ -20,6 +24,7 @@ torch.set_num_threads(1)
 import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
+from fhebench.reference import lwe, plain  # noqa: E402
 import sgfhe_tpu as F  # noqa: E402
 from sgfhe_tpu.models import bootstrap as rbs  # noqa: E402
 from sgfhe_tpu.ops import rns as rrns  # noqa: E402
@@ -50,7 +55,7 @@ def ref():
     a0 = rng.integers(0, 1 << 30, (B, L, m)) % p
     b0 = rng.integers(0, 1 << 30, (B, L, m)) % p
     return dict(params=params, ctx=ctx, bkey=bkey, tctx=T.make_context(params, device="cpu"),
-                tbk=tbk, ua=ua, a0=a0, b0=b0)
+                tbk=tbk, ua=ua, a0=a0, b0=b0, secret=np.asarray(sk.key).astype(np.int64))
 
 
 def _reference(s, B, prune, randomized, fused):
@@ -174,3 +179,64 @@ def test_wrapper_refuses_shape_beyond_shared_memory(ref, L, m, prune):
     ua = torch.zeros((1, 1), dtype=torch.int64)
     with pytest.raises(ValueError, match="232,448 bytes"):
         tfused.blind_rotate_fused(ref["tctx"], key, ua, a0, a0, prune=prune)
+
+
+GATES = 8
+
+
+@pytest.fixture(scope="module")
+def gates(ref):
+    """8 gate pairs under the carried-over key, and the answers of one
+    `bootstrap_batch` call by each route: `plain`, and `resident` with the
+    plain version's calls counted."""
+    g = torch.Generator().manual_seed(64)
+    params = T.Params.create(64)
+    sk = T.PrivateKey(params, torch.as_tensor(ref["secret"]))
+    msg = torch.randint(0, 2, (params.n,), generator=g)
+    bits = T.split_ciphertext(T.encrypt(sk, g, msg)).lwe
+    ins = [T.LWE(bits.a[i:2 * GATES:2], bits.b[i:2 * GATES:2]) for i in (0, 1)]
+
+    def call():
+        return tbs.bootstrap_batch(params, ref["tctx"], ref["tbk"].hat, ref["tbk"].hat_shoup,
+                                   *ins)
+
+    want = call()
+    mp = pytest.MonkeyPatch()
+    tiles = []
+    fused_plain = tfused.blind_rotate_fused_plain
+
+    def counted(*args, **kwargs):
+        tiles.append(args[2].shape[0])
+        return fused_plain(*args, **kwargs)
+
+    mp.setattr(tbs, "_rotation_route", lambda *args: "resident")
+    mp.setattr(tfused, "blind_rotate_fused_plain", counted)
+    launches = tfused.blind_rotate_fused.launches
+    try:
+        got = call()
+    finally:
+        mp.undo()
+    return dict(params=params, msg=msg[:2 * GATES].numpy(), want=want, got=got, tiles=tiles,
+                launched=tfused.blind_rotate_fused.launches - launches)
+
+
+def test_resident_route_runs_the_plain_version(gates):
+    """blind_rotate_fused takes its plain version on the CPU, once, on all
+    8 gates, and launches nothing."""
+    assert gates["tiles"] == [GATES]
+    assert gates["launched"] == 0
+
+
+@pytest.mark.parametrize("gate", range(3), ids=["and", "or", "xor"])
+def test_resident_route_equals_plain_route(gates, gate):
+    for w, g in zip((gates["want"][gate].a, gates["want"][gate].b),
+                    (gates["got"][gate].a, gates["got"][gate].b)):
+        assert torch.equal(w, g)
+
+
+def test_answers_decrypt_to_the_gates_by_the_reference(ref, gates):
+    p, msg = gates["params"], gates["msg"]
+    for out, expected in zip(gates["got"], plain.gates(msg[0::2], msg[1::2])):
+        answers, wrong, _ = lwe.judge(out.a.numpy(), out.b.numpy(), ref["secret"], p.r, p.Dr,
+                                      expected)
+        assert (answers, wrong) == (GATES, 0)
