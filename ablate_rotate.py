@@ -2,13 +2,13 @@
 
     python3 ablate_rotate.py [--out FILE]
 
-At the main path's two shapes (Params(64), B=4096, carried T-term;
-Params(512), B=256, w-multiplies), times by CUDA events, steps 0..n-1 in
-turn, each kernel of csrc/rotate.cu under:
+At the two shapes the step pair's cells run (Params(512), B=256, L=3,
+m=4096; scheme 2 at k=4, B=512, L=4, m=16384), exact, times by CUDA
+events, steps 0..n-1 in turn, each kernel of csrc/rotate.cu under:
   - its launch plan (ops/fused.py fwd_plan, mac_plan);
-  - flatten_ntt_fwd: every other block shape that fits, down to one block
-    per (gate, operand, digit, limb), which reads each accumulator and runs
-    the digit chain l x L times;
+  - flatten_ntt_fwd: every other block shape that fits shared memory, down
+    to one block per (gate, operand, digit, limb), which reads each
+    accumulator and runs the digit chain l x L times;
   - mac_rotate_ntt_inv: every (G, chunk) that fits shared memory: the data
     mac_plan's constants were fitted to (G = 1 stages the key per gate);
   - both: a copy of rotate.cu on RADIX_LOG 1 (one __syncthreads per NTT
@@ -87,22 +87,20 @@ def main() -> int:
         return a.elapsed_time(b) / reps
 
     results = []
-    for tag, n, B, t_mode in (("n=64", 64, 4096, 2), ("n=512", 512, 256, 0)):
-        params = T.Params.create(n)
-        ft = T.make_context(params, device=dev).fused
-        L, m = params.num_limbs, params.m
+    shapes = (("n=512", T.Params.create(512), 256),
+              ("s2 k=4", T.Scheme2.Params.create(4), 512))
+    for tag, params, B in shapes:
+        ft = (T.Scheme2 if hasattr(params, "k") else T).make_context(params, device=dev).fused
+        n, L, m = params.n, params.num_limbs, params.m
         g = torch.Generator(device=dev).manual_seed(n)
         pcol = torch.tensor(params.moduli, device=dev).reshape(L, 1)
 
         def canon(*shape):
             return torch.randint(0, 1 << 30, shape, device=dev, generator=g) % pcol
 
-        key64 = canon(n, 2 * L, 2, L, m)
-        key_hat, key_s = mm.bits32(key64), mm.bits32((key64 << 32) // pcol)
-        del key64
+        key_hat = torch.cat([mm.bits32(canon(1, 2 * L, 2, L, m)) for _ in range(n)])
         acc = mm.bits32(torch.stack([canon(B, L, m), canon(B, L, m)]))
         u = torch.randint(0, 2 * m, (B,), device=dev, generator=g).to(torch.int32)
-        carry = mm.bits32(torch.stack([canon(B, L, m), canon(B, L, m)]))
         d_hat = torch.empty((B, 2 * L, L, m), dtype=torch.int32, device=dev)
         out = torch.empty((2, B, L, m), dtype=torch.int32, device=dev)
         step_bytes = key_hat[0].numel() * 4
@@ -124,10 +122,8 @@ def main() -> int:
             def run(i):
                 k = i % n
                 rc = lib.sg_mac_rotate_ntt_inv(
-                    d_hat.data_ptr(), key_hat.data_ptr() + k * step_bytes,
-                    key_s.data_ptr() + k * step_bytes, u.data_ptr(), dst.data_ptr(),
-                    carry.data_ptr() if t_mode else None, ft.tables.data_ptr(), consts,
-                    B, L, m, 0, t_mode, stream, words)
+                    d_hat.data_ptr(), key_hat.data_ptr() + k * step_bytes, u.data_ptr(),
+                    dst.data_ptr(), ft.tables.data_ptr(), consts, B, L, m, 0, stream, words)
                 assert rc == 0, rc
             return run
 
@@ -135,6 +131,8 @@ def main() -> int:
         fwd_variants = {"planned": (libs["planned"], fp), "radix 2": (libs["radix 2"], fp)}
         for kl, kd in ((1, L), (1, 1)):
             smem = fused.fwd_smem(kl, kd, m)
+            if smem > fused.SMEM_BLOCK or (kl, kd) == (fp.limbs, fp.digits):
+                continue
             th = fused._fwd_threads(smem)
             fwd_variants[f"block per {kl} limb(s) x {kd} digit(s)"] = (
                 libs["planned"],
@@ -155,11 +153,9 @@ def main() -> int:
             dst = d_hat if kernel == "flatten_ntt_fwd" else out
             ref = None
             for name, (lib, plan) in variants.items():
-                carry0 = carry.clone()
                 res = torch.empty_like(dst)
                 make(lib, plan, res)(0)
                 torch.cuda.synchronize()
-                carry.copy_(carry0)
                 if ref is None:
                     ref = res
                 elif not torch.equal(res, ref):

@@ -8,25 +8,25 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      nvcc a source, started together).
   2. the kernels vs the twin on the card, bit for bit, at Params(64) with
      port-made keys: exact, prune 1 and 2, randomized, and near-2^29 moduli
-     with l = 3; the step pair in both of its T-modes (carry and
-     w-multiply), and rotate_resident (the whole rotation in one launch)
-     == its plain version == the twin == the step pair, one launch each.
+     with l = 3; the step pair, and rotate_resident (the whole rotation in
+     one launch) == its plain version == the twin == the step pair, one
+     launch each.
   2b. one step of each step-pair kernel against its plain version, bit for
      bit, at L in {2, 3, 4} x m in {512, 1024, 2048, 4096, 8192, 16384,
      32768} with near-2^29 moduli, random canonical inputs and key slice,
      B = 1 and a batch whose last gate tile is partial, every prune, exact
-     and randomized, every T-mode; rotate_resident == plain == the step pair
+     and randomized; rotate_resident == plain == the step pair
      at every (L, m) whose key the route admits, n = 64 steps, B = 1 and a
      batch whose last gate tile is partial, every prune, both modes.
   3. each kernel against its plain version at the main paths' shapes
-     (Params(64), Params(512), scheme 2 at k=1), in both of its modes,
-     with its time (steps 0..n-1 in turn, as the main path walks the key),
+     (Params(64), Params(512), scheme 2 at k=1), the forward kernel exact
+     and randomized, with its time (steps 0..n-1 in turn, as the main path walks the key),
      the plain version's time and its bound; rotate_resident at Params(64)
      and B = 4096 in four modes (exact, randomized, prune 1 and 2): ms a
      launch (a whole rotation), the plain version's ms, the bound over the
      whole loop; its ms at every gate tile that fits, the step pair's whole
      rotation on the same gates, its registers and spills; then one step of
-     each step-pair kernel, bit for bit against plain in both modes, at
+     each step-pair kernel, bit for bit against plain, exact and randomized, at
      every other batch a main path launches (mul's 1024, 512 and 256 lanes;
      the pack's 512 at Params(512)).
   4. main path at Params(64): keygen, encrypt, split, bootstrap_batch on
@@ -104,7 +104,8 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      call then adds/s over two more, max |phase noise|; randomized and
      prune = 1 on 32 pairs,
      every digit and carry right; each kernel timed against plain and its
-     bound at (512, 4, 32768) in both of its modes; one step == plain at
+     bound at (512, 4, 32768), the forward kernel exact and randomized; one
+     step == plain at
      every batch the phase launches.
   14. the single-card examples in-process on the card: adder (8 bits,
      n = 64, 4 instances) and depth (10 generations, n = 64), each checking
@@ -135,6 +136,7 @@ import subprocess
 import sys
 import time
 from pathlib import Path
+from unittest import mock
 
 ROOT = Path(__file__).resolve().parent
 HBM_BYTES_PER_S = 3.35e12  # H100 SXM device memory
@@ -192,13 +194,12 @@ def fwd_cost(B, L, m, lk, randomized):
     return nbytes, coeffs * (chain + masks) + ntt
 
 
-def mac_cost(B, L, m, lk, t_mode):
+def mac_cost(B, L, m, lk):
     """Bytes and int32 multiplies one mac_rotate_ntt_inv launch needs."""
     logm = m.bit_length() - 1
-    acc = 2 * B * L * m * 4
-    nbytes = (B * 2 * lk * L * m * 4 + 2 * (2 * lk * 2 * L * m * 4) + B * 4 + acc
-              + L * 8 * m * 4 + (2 * acc if t_mode == 2 else acc if t_mode == 1 else 0))
-    per_elem = 2 * lk + (0 if t_mode == 2 else lk) + 1 + 1
+    nbytes = (B * 2 * lk * L * m * 4 + 2 * (2 * lk * 2 * L * m * 4) + B * 4
+              + 2 * B * L * m * 4 + L * 8 * m * 4)
+    per_elem = 2 * lk + lk + 1 + 1  # MAC, T-term, x^u, inverse twist
     muls = 2 * B * L * (m * per_elem + (m // 2) * logm)
     return nbytes, muls * SHOUP_MULS
 
@@ -214,7 +215,9 @@ def resident_cost(B, L, m, n, lk, randomized, carry):
     logm = m.bit_length() - 1
     nbytes = (2 * 2 * B * L * m * 4 + n * 2 * lk * 2 * L * m * 4 + B * n * 4
               + L * 10 * m * 4)
-    step = fwd_cost(B, L, m, lk, randomized)[1] + mac_cost(B, L, m, lk, 2 if carry else 0)[1]
+    step = fwd_cost(B, L, m, lk, randomized)[1] + mac_cost(B, L, m, lk)[1]
+    if carry:  # a carried T-term takes no w-multiplies
+        step -= 2 * B * L * m * lk * SHOUP_MULS
     entry = B * 2 * L * (m // 2) * logm * SHOUP_MULS if carry else 0
     return nbytes, n * step + entry
 
@@ -302,7 +305,11 @@ def main() -> int:
         return fused.blind_rotate_fused.launches
 
     def resident_route(params):
-        return tbs._rotation_route(params, dev, 0, False) == "resident"
+        return tbs._rotation_route(params, dev) == "resident"
+
+    def twin():
+        """While open, every rotation takes the twin, on the card too."""
+        return mock.patch.object(tbs, "_rotation_route", lambda params, device: "plain")
 
     def expect_launches(tag, params, rotations):
         """Since the last reset(): one rotate_resident launch a rotation for
@@ -361,51 +368,40 @@ def main() -> int:
     p_big = dataclasses.replace(p64, moduli=mods)
     ctx_big, _, bk_big, _ = keys(p_big, 2)
     cases = [
-        ("exact carry", p64, ctx64, bk64, 0, None, True),
-        ("exact w-multiply", p64, ctx64, bk64, 0, None, False),
-        ("prune=1", p64, ctx64, bk64, 1, None, False),
-        ("prune=2", p64, ctx64, bk64, 2, None, False),
-        ("randomized carry", p64, ctx64, bk64, 0, (0x12345678, 0x9ABCDEF0), True),
-        ("randomized prune=1", p64, ctx64, bk64, 1, (0x12345678, 0x9ABCDEF0), False),
-        ("near-2^29 l=3 carry", p_big, ctx_big, bk_big, 0, None, True),
-        ("near-2^29 l=3 w-multiply", p_big, ctx_big, bk_big, 0, None, False),
+        ("exact", p64, ctx64, bk64, 0, None),
+        ("prune=1", p64, ctx64, bk64, 1, None),
+        ("prune=2", p64, ctx64, bk64, 2, None),
+        ("randomized", p64, ctx64, bk64, 0, SEED2),
+        ("randomized prune=1", p64, ctx64, bk64, 1, SEED2),
+        ("near-2^29 l=3", p_big, ctx_big, bk_big, 0, None),
     ]
     reset()
-    twins = {}  # (params, prune, seed2) -> inputs, the twin's and the step pair's outputs
-    for name, params, ctx, bk, prune, seed2, carry in cases:
+    for name, params, ctx, bk, prune, seed2 in cases:
         ua, a0, b0 = rand_acc(params, 8, 3)
-        want = tbs.blind_rotate(params, ctx, bk.hat, bk.hat_shoup, ua, a0, b0,
-                                seed2, prune, plain=True)
-        got = fused.blind_rotate_steps(ctx, bk.hat, bk.hat_shoup, ua, a0, b0,
-                                       seed2, prune, carry=carry)
+        with twin():
+            want = tbs.blind_rotate(params, ctx, bk.hat, bk.hat_shoup, ua, a0, b0, seed2, prune)
+        steps = fused.blind_rotate_steps(ctx, bk.hat, ua, a0, b0, seed2, prune)
         torch.cuda.synchronize()
-        for w, g in zip(want, got):
+        for w, g in zip(want, steps):
             if not torch.equal(w, g):
                 fail(f"kernel != twin in mode {name}: "
                      f"{int((w != g).sum())} of {w.numel()} words differ")
         print(f"[2] kernel == twin bit for bit: {name}")
-        entry = twins.setdefault((params, prune, seed2), dict(
-            inputs=(ua, a0, b0), want=want, steps=[], ctx=ctx, bk=bk,
-            name=name.replace(" carry", "").replace(" w-multiply", "")))
-        entry["steps"].append(got)
-    print(f"[2] launches (flatten_ntt_fwd, mac_rotate_ntt_inv): {counts()}")
-    # rotate_resident, one launch for all n steps, == its plain version, the
-    # twin and the step pair in each of its T-modes, on the same 8 gates
-    for (params, prune, seed2), e in twins.items():
-        ua, a0, b0 = e["inputs"]
-        plain = fused.blind_rotate_fused_plain(e["ctx"], e["bk"].hat, ua, a0, b0, seed2, prune)
+        # rotate_resident, one launch for all n steps, == its plain version,
+        # the twin and the step pair on the same 8 gates
+        plain = fused.blind_rotate_fused_plain(ctx, bk.hat, ua, a0, b0, seed2, prune)
         before = rcount()
-        got = fused.blind_rotate_fused(e["ctx"], e["bk"].hat, ua, a0, b0, seed2, prune)
+        got = fused.blind_rotate_fused(ctx, bk.hat, ua, a0, b0, seed2, prune)
         torch.cuda.synchronize()
         if rcount() != before + 1:
-            fail(f"[2] rotate_resident {e['name']}: {rcount() - before} launches, expected 1")
-        for ref_name, ref in (("plain", plain), ("twin", e["want"])) + tuple(
-                (f"step pair {i}", s_) for i, s_ in enumerate(e["steps"])):
+            fail(f"[2] rotate_resident {name}: {rcount() - before} launches, expected 1")
+        for ref_name, ref in (("plain", plain), ("twin", want), ("step pair", steps)):
             if not all(torch.equal(w, g) for w, g in zip(ref, got)):
-                fail(f"[2] rotate_resident != {ref_name} in mode {e['name']}")
-        print(f"[2] rotate_resident == plain == twin == step pair ({len(e['steps'])} T-mode"
-              f"{'s' if len(e['steps']) > 1 else ''}) bit for bit, one launch: {e['name']}")
-    print(f"[2] rotate_resident launches: {rcount()}")
+                fail(f"[2] rotate_resident != {ref_name} in mode {name}")
+        print(f"[2] rotate_resident == plain == twin == step pair bit for bit, one launch: "
+              f"{name}")
+    print(f"[2] launches (flatten_ntt_fwd, mac_rotate_ntt_inv): {counts()}; "
+          f"rotate_resident: {rcount()}")
     phase_done("2")
 
     # ---- 2b. one step of each kernel at every supported shape ---------------
@@ -424,8 +420,7 @@ def main() -> int:
             def on_card(a):
                 return mm.bits32(torch.as_tensor(a, device=dev))
 
-            key = canon((1, 2 * L, 2, L, m))
-            key_hat, key_s = on_card(key), on_card((key << 32) // p)
+            key_hat = on_card(canon((1, 2 * L, 2, L, m)))
             for prune in range(L):
                 ragged = next((B for B in range(2, 200)
                                if (g := fused.mac_plan(B, L, m, prune).gates) > 1 and B % g), 2)
@@ -439,18 +434,11 @@ def main() -> int:
                             fail(f"flatten_ntt_fwd != plain: L={L} m={m} B={B} "
                                  f"prune={prune} randomized={seed2 is not None}")
                         n_checks += 1
-                    for t_mode in ((0, 1, 2) if prune == 0 else (0,)):
-                        carry_k = on_card(canon((2, B, L, m))) if t_mode else None
-                        carry_p = carry_k.clone() if t_mode else None
-                        got = fused.mac_rotate_ntt_inv(ctx, d_p, key_hat, key_s, 0, u,
-                                                       prune, t_mode, carry_k)
-                        want = fused.mac_rotate_ntt_inv_plain(ctx, d_p, key_hat, key_s, 0, u,
-                                                              prune, t_mode, carry_p)
-                        if not (torch.equal(got, want)
-                                and (not t_mode or torch.equal(carry_k, carry_p))):
-                            fail(f"mac_rotate_ntt_inv != plain: L={L} m={m} B={B} "
-                                 f"prune={prune} t_mode={t_mode}")
-                        n_checks += 1
+                    got = fused.mac_rotate_ntt_inv(ctx, d_p, key_hat, 0, u, prune)
+                    if not torch.equal(got, fused.mac_rotate_ntt_inv_plain(ctx, d_p, key_hat,
+                                                                           0, u, prune)):
+                        fail(f"mac_rotate_ntt_inv != plain: L={L} m={m} B={B} prune={prune}")
+                    n_checks += 1
             print(f"[2b] L={L} m={m}: both kernels == plain bit for bit "
                   f"(B = 1 and {ragged}, every prune and mode)")
     print(f"[2b] {n_checks} single-step checks")
@@ -466,9 +454,8 @@ def main() -> int:
         ctx = T.make_context(params, device=dev)
         rng = np.random.default_rng(7 * L + m)
         p = np.array(mods, dtype=np.int64).reshape(L, 1)
-        key = rng.integers(0, 1 << 30, (64, 2 * L, 2, L, m)) % p
-        key_hat = mm.bits32(torch.as_tensor(key, device=dev))
-        key_s = mm.bits32(torch.as_tensor((key << 32) // p, device=dev))
+        key_hat = mm.bits32(torch.as_tensor(rng.integers(0, 1 << 30, (64, 2 * L, 2, L, m)) % p,
+                                            device=dev))
         sm = fused._sm_count(0)
         for prune in range(L):
             ragged = next(B for B in range(2, 4096)
@@ -480,11 +467,8 @@ def main() -> int:
                 b0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
                 for seed2 in (None, SEED2):
                     got = fused.blind_rotate_fused(ctx, key_hat, ua, a0, b0, seed2, prune)
-                    refs = [fused.blind_rotate_fused_plain(ctx, key_hat, ua, a0, b0, seed2,
-                                                           prune)]
-                    refs += [fused.blind_rotate_steps(ctx, key_hat, key_s, ua, a0, b0, seed2,
-                                                      prune, carry=c)
-                             for c in ((False, True) if prune == 0 else (False,))]
+                    refs = [fused.blind_rotate_fused_plain(ctx, key_hat, ua, a0, b0, seed2, prune),
+                            fused.blind_rotate_steps(ctx, key_hat, ua, a0, b0, seed2, prune)]
                     for ref in refs:
                         if not all(torch.equal(w, g_) for w, g_ in zip(ref, got)):
                             fail(f"[2b] rotate_resident != plain or step pair: L={L} m={m} "
@@ -513,13 +497,13 @@ def main() -> int:
           f"q_moduli={s2p.q_moduli}; key with Shoup companions made on the card in "
           f"{time.perf_counter() - t:.1f} s: {key_mib:.0f} MiB")
     table = []
-    # (tag, ..., batch, the main path's T-mode, the TPU kernel replaced:
-    # _rotate_kernel at Params(64), whose T-term is carried;
-    # _rotate_step_kernel at Params(512) and for scheme 2's 2048 lanes)
+    # (tag, ..., batch, the TPU kernel replaced: _rotate_kernel at
+    # Params(64); _rotate_step_kernel at Params(512) and for scheme 2's 2048
+    # lanes)
     shapes = [
-        ("n=64", p64, ctx64, bk64, 4096, 2, "sgfhe_tpu/ops/fused.py:542"),
-        ("n=512", p512, ctx512, bk512, 256, 0, "sgfhe_tpu/ops/fused.py:604"),
-        ("s2 k=1", s2p, ctx2, bk2, 2 * s2p.n, 0, "sgfhe_tpu/ops/fused.py:604"),
+        ("n=64", p64, ctx64, bk64, 4096, "sgfhe_tpu/ops/fused.py:542"),
+        ("n=512", p512, ctx512, bk512, 256, "sgfhe_tpu/ops/fused.py:604"),
+        ("s2 k=1", s2p, ctx2, bk2, 2 * s2p.n, "sgfhe_tpu/ops/fused.py:604"),
     ]
 
     def add_row(phase, name, replaces, err, ms, pms, nbytes_muls,
@@ -533,11 +517,11 @@ def main() -> int:
         print(f"[{phase}] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), plain "
               f"{pms:.3f} ms, bound {bms:.4f} ms ({by}), max_abs_err {err}")
 
-    def time_kernels(tag, params, ctx, bk, B, main_t, replaces, phase="3", reps=None):
-        """Each kernel in both of its modes at one main path's shape: == plain,
-        ms per launch (over `reps` launches, n by default, walking the
-        key's steps 0..n-1 in turn at a stride of n / reps), plain ms,
-        bound; one table row each."""
+    def time_kernels(tag, params, ctx, bk, B, replaces, phase="3", reps=None):
+        """Each kernel at one main path's shape, the forward kernel exact and
+        randomized: == plain, ms per launch (over `reps` launches, n by
+        default, walking the key's steps 0..n-1 in turn at a stride of n /
+        reps), plain ms, bound; one table row each."""
         L, m, n = params.num_limbs, params.m, params.n
         reps = reps or n
         stride = n // reps
@@ -559,25 +543,17 @@ def main() -> int:
             pms = cuda_ms(lambda i: fused.flatten_ntt_fwd_plain(ctx, acc, i % n, seed2), 3)
             name = f"flatten_ntt_fwd{' randomized' if seed2 else ''} ({tag})"
             add_row(phase, name, replaces, err, ms, pms, fwd_cost(B, L, m, L, seed2 is not None))
-        for t_mode in (main_t, 2 - main_t):
-            carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
-            carry_p = carry_k.clone() if t_mode else None
-            out_k = fused.mac_rotate_ntt_inv(ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0,
-                                             t_mode, carry_k)
-            out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_k, bk.hat, bk.hat_shoup, 0, u, 0,
-                                                   t_mode, carry_p)
-            torch.cuda.synchronize()
-            err = int((out_k.long() - out_p.long()).abs().max())
-            if t_mode:
-                err = max(err, int((carry_k.long() - carry_p.long()).abs().max()))
-            if err:
-                fail(f"{tag}: mac_rotate_ntt_inv t_mode {t_mode} vs plain max_abs_err {err}")
-            ms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv(
-                ctx, d_k, bk.hat, bk.hat_shoup, i * stride % n, u, 0, t_mode, carry_k), reps)
-            pms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv_plain(
-                ctx, d_k, bk.hat, bk.hat_shoup, i % n, u, 0, t_mode, carry_p), 3)
-            name = f"mac_rotate_ntt_inv {'carry' if t_mode else 'w-multiply'} ({tag})"
-            add_row(phase, name, replaces, err, ms, pms, mac_cost(B, L, m, L, t_mode))
+        out_k = fused.mac_rotate_ntt_inv(ctx, d_k, bk.hat, 0, u)
+        out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_k, bk.hat, 0, u)
+        torch.cuda.synchronize()
+        err = int((out_k.long() - out_p.long()).abs().max())
+        if err:
+            fail(f"{tag}: mac_rotate_ntt_inv vs plain max_abs_err {err}")
+        ms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv(ctx, d_k, bk.hat, i * stride % n, u),
+                     reps)
+        pms = cuda_ms(lambda i: fused.mac_rotate_ntt_inv_plain(ctx, d_k, bk.hat, i % n, u), 3)
+        add_row(phase, f"mac_rotate_ntt_inv ({tag})", replaces, err, ms, pms,
+                mac_cost(B, L, m, L))
 
     for shape in shapes:
         time_kernels(*shape)
@@ -626,42 +602,31 @@ def main() -> int:
         sweep.append((G, round(ms, 4)))
     print(f"[3] rotate_resident exact (n=64) ms by gates a block (G, ms): {sweep}; the plan "
           f"takes G = {fused.resident_plan(4096, L, L, m, 0, sm).gates}")
-    # the step pair on the same batch, all n steps, carried T (t_modes 1, 2)
-    ms = cuda_ms(lambda i: fused.blind_rotate_steps(ctx64, bk64.hat, bk64.hat_shoup, ua, a0, b0,
-                                                    carry=True), 3)
-    print(f"[3] the step pair's whole rotation on the same 4096 gates (carried T): {ms:.4f} ms, "
+    # the step pair on the same batch, all n steps
+    ms = cuda_ms(lambda i: fused.blind_rotate_steps(ctx64, bk64.hat, ua, a0, b0), 3)
+    print(f"[3] the step pair's whole rotation on the same 4096 gates: {ms:.4f} ms, "
           f"{2 * n} launches; rotate_resident exact {res_ms['exact']:.4f} ms, one launch")
     del ua, a0, b0, want, got
 
     def check_steps(phase, tag, params, ctx, bk, batches, prune=0):
-        """One step of each kernel, bit for bit against plain, in both modes
-        and T-modes 0 and 2 (0 alone when pruned), at each batch in
-        `batches`."""
+        """One step of each kernel, bit for bit against plain, exact and
+        randomized, at each batch in `batches`."""
         L, m = params.num_limbs, params.m
         for B in batches:
             ua, a0, b0 = rand_acc(params, B, 7 + B)
             acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
             u = ua[:, 1].to(torch.int32).contiguous()
-            t_modes = (0, 2) if prune == 0 else (0,)
             for seed2 in (None, SEED2):
                 mode = "randomized" if seed2 else "deterministic"
                 d_p = fused.flatten_ntt_fwd_plain(ctx, acc, 1, seed2, prune)
                 if not torch.equal(fused.flatten_ntt_fwd(ctx, acc, 1, seed2, prune), d_p):
                     fail(f"{tag} B={B} prune={prune}: flatten_ntt_fwd != plain ({mode})")
-                for t_mode in t_modes:
-                    carry_k = torch.stack([b0, a0]).to(torch.int32).contiguous() if t_mode else None
-                    carry_p = carry_k.clone() if t_mode else None
-                    out_k = fused.mac_rotate_ntt_inv(ctx, d_p, bk.hat, bk.hat_shoup, 1, u, prune,
-                                                     t_mode, carry_k)
-                    out_p = fused.mac_rotate_ntt_inv_plain(ctx, d_p, bk.hat, bk.hat_shoup, 1, u,
-                                                           prune, t_mode, carry_p)
-                    if not (torch.equal(out_k, out_p)
-                            and (not t_mode or torch.equal(carry_k, carry_p))):
-                        fail(f"{tag} B={B} prune={prune}: mac_rotate_ntt_inv t_mode {t_mode} "
-                             f"!= plain ({mode})")
+                if not torch.equal(fused.mac_rotate_ntt_inv(ctx, d_p, bk.hat, 1, u, prune),
+                                   fused.mac_rotate_ntt_inv_plain(ctx, d_p, bk.hat, 1, u, prune)):
+                    fail(f"{tag} B={B} prune={prune}: mac_rotate_ntt_inv != plain ({mode})")
             sm = fused._sm_count(0)
             print(f"[{phase}] {tag} B={B} prune={prune}: both kernels == plain bit for bit at "
-                  f"step 1 (deterministic and randomized, T-modes {t_modes}; plans "
+                  f"step 1 (deterministic and randomized; plans "
                   f"{fused.fwd_plan(B, L, m, prune, sm)}, {fused.mac_plan(B, L, m, prune, sm)})")
 
     # The launch plans (gate tile, chunks, waves) follow B, so every other
@@ -778,11 +743,10 @@ def main() -> int:
 
     def step_pair_call(seed2, prune):
         """bootstrap_batch's work on the same gates with the rotation through
-        the step pair (2n launches; the T-term carried when nothing is
-        pruned), the route these gates took before rotate_resident."""
+        the step pair (2n launches), the route these gates took before
+        rotate_resident."""
         def rotate(ua, a, b, seed2=None, prune=0):
-            return fused.blind_rotate_steps(ctx64, bk64.hat, bk64.hat_shoup, ua, a, b, seed2,
-                                            prune, carry=prune == 0)
+            return fused.blind_rotate_steps(ctx64, bk64.hat, ua, a, b, seed2, prune)
 
         def call():
             triple = tbs.bootstrap_internal(p64, ctx64, bk64.hat, bk64.hat_shoup, lwe1.a,
@@ -848,10 +812,11 @@ def main() -> int:
     out, l512, tr512 = drive("5", p512, ctx512, bk512, sk512, lwe1, lwe2, y1, y2, reps=2)
     torch.cuda.synchronize()
     t = time.perf_counter()
-    twin = T.bootstrap_batch(p512, ctx512, bk512.hat, bk512.hat_shoup, lwe1, lwe2, plain=True)
+    with twin():
+        twin_out = T.bootstrap_batch(p512, ctx512, bk512.hat, bk512.hat_shoup, lwe1, lwe2)
     torch.cuda.synchronize()
     twin_s = time.perf_counter() - t
-    for a, b in zip(out, twin):
+    for a, b in zip(out, twin_out):
         if not (torch.equal(a.a, b.a) and torch.equal(a.b, b.b)):
             fail("Params(512): kernel path != twin on the card")
     print(f"[5] twin on the card, same 256 gates: {twin_s:.2f} s "
@@ -862,7 +827,7 @@ def main() -> int:
 
     # ---- 6. scheme 2 at the paper's k = 1, n = 1024 ---------------------------
     n2 = s2p.n
-    route = tbs._rotation_route(s2p, dev, 0, False)
+    route = tbs._rotation_route(s2p, dev)
     if route != "wmul":
         fail(f"[6] scheme 2 k=1 takes route {route}, expected wmul")
     print(f"[6] scheme 2 k=1 n=1024: rotation route {route}")
@@ -885,7 +850,8 @@ def main() -> int:
         the seed words given; mul: each round its own split pair)."""
         for seed2 in (None, SEED2):
             t = time.perf_counter()
-            want = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2, plain=True)
+            with twin():
+                want = B2._add_with_carry(params, ctx, bk, sx, sy, None, seed2)
             torch.cuda.synchronize()
             twin_s = time.perf_counter() - t
             reset()
@@ -900,7 +866,8 @@ def main() -> int:
                   f"launches {what}")
         for seeds in ((None,) * 3, tuple(prg.split_words(SEED2, 3))):
             t = time.perf_counter()
-            want = B2._mul(params, ctx, bk, sx, sy, seeds, plain=True)
+            with twin():
+                want = B2._mul(params, ctx, bk, sx, sy, seeds)
             torch.cuda.synchronize()
             twin_s = time.perf_counter() - t
             reset()
@@ -1018,8 +985,9 @@ def main() -> int:
     # stage's seed words given: both mask streams, not just the decryption
     for seeds in ((None, None), tuple(prg.split_words(SEED2, 2))):
         t = time.perf_counter()
-        want = tbs.pack_internal(p512, ctx512, bk512.hat, bk512.hat_shoup, packed_in.lwe,
-                                 *seeds, plain=True)
+        with twin():
+            want = tbs.pack_internal(p512, ctx512, bk512.hat, bk512.hat_shoup, packed_in.lwe,
+                                     *seeds)
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t
         got = tbs.pack_internal(p512, ctx512, bk512.hat, bk512.hat_shoup, packed_in.lwe, *seeds)
@@ -1103,7 +1071,8 @@ def main() -> int:
     levels = len(circ.schedule())
     for seeds in (None, prg.split_words(SEED2, levels)):
         t = time.perf_counter()
-        want = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds, plain=True)
+        with twin():
+            want = C.evaluate_internal(circ, p64, ctx64, bk64, ins, seeds)
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t
         reset()
@@ -1195,7 +1164,8 @@ def main() -> int:
         a2, b2 = WI.encrypt_wide(sk, g2, x2, 2), WI.encrypt_wide(sk, g2, y2, 2)
         seeds = prg.split_words(SEED2, count)
         t = time.perf_counter()
-        want_out = numbers(fn(params, ctx, bk, a2, b2, seeds, plain=True))
+        with twin():
+            want_out = numbers(fn(params, ctx, bk, a2, b2, seeds))
         torch.cuda.synchronize()
         twin_s = time.perf_counter() - t
         reset()
@@ -1228,10 +1198,10 @@ def main() -> int:
         print(f"[10] k={k} add_wide of 64 2-digit pairs: every value right, max |phase "
               f"noise| {noise_}; launches {counts()}")
         tag = f"s2 k={k}"
-        time_kernels(tag, pk, ctx_k, bk_k, 2 * pairs, 0, "sgfhe_tpu/ops/fused.py:604",
+        time_kernels(tag, pk, ctx_k, bk_k, 2 * pairs, "sgfhe_tpu/ops/fused.py:604",
                      phase="10", reps=steps_timed)
         check_steps("10", tag, pk, ctx_k, bk_k, (128,))
-        runs10[tag] = (l_k, 2, tr_k, "w-multiply")
+        runs10[tag] = (l_k, 2, tr_k)
         del bk_k, sk_k, ctx_k, lx, ly, out
         torch.cuda.empty_cache()
     print(f"[10] -Xptxas -v, flatten_ntt_fwd at L=4 randomized: "
@@ -1287,8 +1257,7 @@ def main() -> int:
         truth_tables(sk_w, back, y1, y2)
         print(f"[11] {mode}: {p1k.n} gates' AND/OR/XOR sent back as EncryptedBit frames, all "
               f"{3 * p1k.n} outputs decrypt right with the loaded private key")
-    time_kernels("n=1024", p1k, ctx1k, bk_w, p1k.n, 0, "sgfhe_tpu/ops/fused.py:604",
-                 phase="11")
+    time_kernels("n=1024", p1k, ctx1k, bk_w, p1k.n, "sgfhe_tpu/ops/fused.py:604", phase="11")
     check_steps("11", "n=1024", p1k, ctx1k, bk_w, (p1k.n,))
     print(f"[11] peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     # phase 15 serves the same key and gates through the multi-device layer
@@ -1372,7 +1341,7 @@ def main() -> int:
     sx, sy = T.LWE(lx.a[:32], lx.b[:32]), T.LWE(ly.a[:32], ly.b[:32])
     s2_add("13", p5, ctx5, bk5, sk5, sx, sy, x[:32] + y[:32], 1, seed_words=SEED2)
     s2_add("13", p5, ctx5, bk5, sk5, sx, sy, x[:32] + y[:32], 1, prune=1)
-    time_kernels("s2 k=5", p5, ctx5, bk5, 512, 0, "sgfhe_tpu/ops/fused.py:604", phase="13",
+    time_kernels("s2 k=5", p5, ctx5, bk5, 512, "sgfhe_tpu/ops/fused.py:604", phase="13",
                  reps=256)
     check_steps("13", "s2 k=5", p5, ctx5, bk5, (64,))
     check_steps("13", "s2 k=5", p5, ctx5, bk5, (64,), prune=1)
@@ -1455,7 +1424,7 @@ def main() -> int:
         fail(f"[15c] {free / 2**30:.1f} GiB free, the k=4 key and its dist-order copy need "
              f"{need / 2**30:.1f} GiB")
     ex, s_ex = timed_s(scheme2_dist.main, ["4", "2", "0"])
-    print(f"[15c] scheme2_dist 4 2 0 in {s_ex:.1f} s: key {ex['key_s']:.1f} s, bkey_to_dist "
+    print(f"[15c] scheme2_dist 4 2 0 in {s_ex:.1f} s: key {ex['keygen_s']:.1f} s, bkey_to_dist "
           f"{ex['convert_s']:.1f} s, add_with_carry_dist {ex['add_s']:.1f} s "
           f"({ex['add_s'] / p4.n * 1e3:.2f} ms a step, 4 lanes) on {card}")
     for prune in (0, 1):
@@ -1496,9 +1465,8 @@ def main() -> int:
     # in that path's run, calls, the number of calls in the run, and
     # trace_ms, its device ms per launch in the traced call. The other modes
     # launched 0 times there.
-    runs = {"n=512": (l512, 3, tr512, "w-multiply"),
-            "s2 k=1": (l_add, 3, tr_s2, "w-multiply"), **runs10,
-            "n=1024": (l1k, 4, tr1k, "w-multiply"), "s2 k=5": (l_k5, 2, tr_k5, "w-multiply")}
+    runs = {"n=512": (l512, 3, tr512), "s2 k=1": (l_add, 3, tr_s2), **runs10,
+            "n=1024": (l1k, 4, tr1k), "s2 k=5": (l_k5, 2, tr_k5)}
     for row in table:
         tag = row["name"][row["name"].index("(") + 1:-1]
         if row["name"].startswith("rotate_resident"):  # Params(64)'s main path, phase 4
@@ -1509,10 +1477,10 @@ def main() -> int:
         if tag == "n=64":  # the step pair at Params(64): phase 4's comparison route
             row.update(launches=0, calls=0, trace_ms=None)
             continue
-        counts_, calls, tr, mac_mode = runs[tag]
+        counts_, calls, tr = runs[tag]
         fwd = row["name"].startswith("flatten")
         kname = "flatten_ntt_fwd" if fwd else "mac_rotate_ntt_inv"
-        main = row["name"] in (f"{kname} ({tag})", f"{kname} {mac_mode} ({tag})")
+        main = row["name"] == f"{kname} ({tag})"
         row["launches"] = (counts_[0] if fwd else counts_[1]) if main else 0
         row["calls"] = calls if main else 0
         row["trace_ms"] = tr[kname] if main else None

@@ -101,7 +101,7 @@ _P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
 _SIGNATURES = {
     "rotate.cu": {
         "sg_flatten_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U, _P, _P],
-        "sg_mac_rotate_ntt_inv": [_P, _P, _P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _P, _P],
+        "sg_mac_rotate_ntt_inv": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _P, _P],
         "sg_consts_words": [],
     },
     "rotate_resident.cu": {

@@ -217,8 +217,8 @@ def _pad_rows(x: torch.Tensor, rows: int) -> torch.Tensor:
     return torch.cat([x, x.new_zeros((rows - x.shape[0],) + tuple(x.shape[1:]))])
 
 
-def evaluate_internal(circuit: Circuit, params, ctx, bkey, inputs, level_seeds=None, *,
-                      plain: bool = False) -> list[EncryptedBit]:
+def evaluate_internal(circuit: Circuit, params, ctx, bkey, inputs,
+                      level_seeds=None) -> list[EncryptedBit]:
     """`evaluate` with each level's seed words given: level_seeds is None
     (deterministic) or one pair of Threefry key words for each level of
     `circuit.schedule()`, used as given."""
@@ -286,7 +286,7 @@ def evaluate_internal(circuit: Circuit, params, ctx, bkey, inputs, level_seeds=N
                     a1, b1, a2, b2 = (_pad_rows(x, pw) for x in (a1, b1, a2, b2))
                 seed2 = level_seeds[lvl] if level_seeds is not None else None
                 triple = bs.bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup,
-                                               a1, b1, a2, b2, seed2, plain=plain)
+                                               a1, b1, a2, b2, seed2)
                 by_op = dict(zip(_GATES, (bs._reduce_lwe(params, ctx, t) for t in triple)))
                 for j, pair in enumerate(pairs):
                     sl = slice(j * B, (j + 1) * B)
@@ -303,7 +303,7 @@ def evaluate_internal(circuit: Circuit, params, ctx, bkey, inputs, level_seeds=N
 
 
 def evaluate(circuit: Circuit, params, ctx, bkey, inputs, seed_words=None,
-             epoch: "int | None" = None, *, plain: bool = False) -> list[EncryptedBit]:
+             epoch: "int | None" = None) -> list[EncryptedBit]:
     """Evaluate `circuit` on encrypted inputs; returns the output
     EncryptedBits in `output()` order.
 
@@ -319,7 +319,7 @@ def evaluate(circuit: Circuit, params, ctx, bkey, inputs, seed_words=None,
     seed2 = prg.fold_epoch(seed_words, epoch)
     levels = len(circuit.schedule())
     level_seeds = None if seed2 is None else prg.split_words(seed2, levels)
-    return evaluate_internal(circuit, params, ctx, bkey, inputs, level_seeds, plain=plain)
+    return evaluate_internal(circuit, params, ctx, bkey, inputs, level_seeds)
 
 
 def evaluate_plain(circuit: Circuit, bits) -> list[int]:

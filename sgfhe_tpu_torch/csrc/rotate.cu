@@ -4,8 +4,7 @@
 //   _rotate_step_kernel (fused.py:604, key streamed, T-term by w-multiplies)
 // and its body (_flatten_k, _flatten_rand_k, _ntt_fwd_lazy, _rotate_body,
 // _ntt_inv_lazy), for keys larger than 10 MiB; keys up to that take
-// rotate_resident.cu, the resident kernel _rotate_kernel's counterpart (the
-// carried T-term here, t_mode 2, lets the step pair be timed against it).
+// rotate_resident.cu, the resident kernel _rotate_kernel's counterpart.
 // One rotation step is two launches; the n-step loop runs on the host
 // (sgfhe_tpu_torch/ops/fused.py), in place of the TPU grid's sequential step
 // axis. The helpers they share with rotate_resident.cu are in
@@ -24,8 +23,8 @@
 //                       of the 2(l - prune) key rows and of the G gates'
 //                       d_hat rows into a double-buffered shared-memory
 //                       ring by cp.async, and uses each key chunk for all G
-//                       gates: MAC and T-term (w-multiplies, or the carried
-//                       canonical val) as exact 64-bit sums reduced once,
+//                       gates: MAC and T-term (w-multiplies) as exact
+//                       64-bit sums reduced once,
 //                       x^{u_k} by one gather of psi^{(2 br(idx)+1) u mod
 //                       2m} per quad of coefficients and powers of the 4th
 //                       root of unity psi^{m/2}, val = rot - s + t into
@@ -58,7 +57,7 @@
 //   - twiddles, the post-twist and the x^u power table are read through
 //     __ldg: staging them in shared memory cost blocks per SM and did not
 //     pay at either main-path shape;
-//   - global loads and stores of acc, d_hat, carry and the key are 16 bytes.
+//   - global loads and stores of acc, d_hat and the key are 16 bytes.
 // Every value stays below 4p < 2^32 in the NTTs (Harvey butterflies, as
 // in the first version) and every kernel output is canonical, so the
 // outputs equal the plain versions bit for bit.
@@ -66,8 +65,8 @@
 // Data are uint32 bit patterns in int32 tensors, layouts (row-major):
 //   acc    (2, B, L, m)   [a; b] accumulators, canonical
 //   d_hat  (B, 2lk, L, m) canonical hat digits, lk = l - prune
-//   key    (2l, 2, L, m)  this step's key slice (hat); its Shoup companions
-//                         come beside it and the MAC kernel does not need them
+//   key    (2l, 2, L, m)  this step's key slice (hat); the MAC sums exact
+//                         64-bit products, so it needs no Shoup companions
 //   tables (L, 10, m)     fwd, fwd_s, inv, inv_s, post, post_s, pw (2m), pw_s (2m)
 // Moduli are < 2^30 (asserted by the Python wrapper), so lazy values below
 // 4p fit in 32 bits. Each launch takes its block shape from a plan the
@@ -198,10 +197,6 @@ __global__ void __launch_bounds__(FWD_THREADS_MAX) flatten_ntt_fwd_kernel(
 // mac_rotate_ntt_inv
 // ---------------------------------------------------------------------------
 
-// t_mode: 0 = T-term by w-multiplies; 1 = by w-multiplies, and write val to
-// carry; 2 = read T from carry (the previous step's canonical val), write
-// this step's val back.
-//
 // Block (column col, limb k, gates b0 .. b0+G-1). Shared memory: G padded
 // vals; the ring, 2 buffers (1 if one chunk is the whole row) of 2lk (G +
 // 1) rows x chunk words: the 2lk kept key rows (the MAC sums exact 64-bit
@@ -209,15 +204,15 @@ __global__ void __launch_bounds__(FWD_THREADS_MAX) flatten_ntt_fwd_kernel(
 // each gate. Chunk ch+1 streams in by cp.async
 // while chunk ch is computed from shared memory, one quad
 // of one gate per thread (the plan keeps G x chunk / 4 <= MAC_THREADS);
-// the thread's x^u power and carried T for chunk ch+1 are loaded from
-// device memory before chunk ch is computed.
+// the thread's x^u power for chunk ch+1 is loaded from device memory
+// before chunk ch is computed. The T-term is computed by w-multiplies of
+// the column's kept d_hat rows.
 template <int L>
 __global__ void __launch_bounds__(MAC_THREADS, MAC_MIN_BLOCKS) mac_rotate_ntt_inv_kernel(
     const uint32_t* __restrict__ d_hat, const uint32_t* __restrict__ key,
     const uint32_t* __restrict__ u, uint32_t* __restrict__ acc_out,
-    uint32_t* __restrict__ carry, const uint32_t* __restrict__ tables,
-    const __grid_constant__ RnsConsts c, const MacPlan pl,
-    int B, int m, int logm, int prune, int t_mode) {
+    const uint32_t* __restrict__ tables, const __grid_constant__ RnsConsts c,
+    const MacPlan pl, int B, int m, int logm, int prune) {
   extern __shared__ __align__(16) uint32_t sm[];
   const int lk = L - prune;
   const int G = pl.gates, C = pl.chunk;
@@ -293,18 +288,13 @@ __global__ void __launch_bounds__(MAC_THREADS, MAC_MIN_BLOCKS) mac_rotate_ntt_in
   const bool active = g < gv;
   const int b = b0 + (active ? g : 0);
   const uint32_t uk = __ldg(u + b);
-  const size_t arow = (((size_t)col * B + b) * L + k) * m;
-  uint32_t nw = 0, nws = 0, nt[4] = {0, 0, 0, 0};
-  auto prefetch = [&](int ch) {  // x^u power and carried T of chunk ch
+  uint32_t nw = 0, nws = 0;
+  auto prefetch = [&](int ch) {  // x^u power of chunk ch
     if (!active || ch >= nch) return;
     const int idx0 = ch * C + 4 * qd;
     const uint32_t e = ((2u * (__brev((uint32_t)idx0) >> (32 - logm)) + 1u) * uk) & mask2m;
     nw = __ldg(pw + e);
     nws = __ldg(pws + e);
-    if (t_mode == 2) {
-      const uint4 cv = *reinterpret_cast<const uint4*>(carry + arow + idx0);
-      nt[0] = cv.x; nt[1] = cv.y; nt[2] = cv.z; nt[3] = cv.w;
-    }
   };
   prefetch(0);
 
@@ -317,7 +307,6 @@ __global__ void __launch_bounds__(MAC_THREADS, MAC_MIN_BLOCKS) mac_rotate_ntt_in
     }
     __syncthreads();
     const uint32_t pwv = nw, pwsv = nws;
-    uint32_t t[4] = {nt[0], nt[1], nt[2], nt[3]};
     prefetch(ch + 1);
     if (active) {
       const uint32_t* kb = ring + (ch % S) * ring_words;
@@ -335,28 +324,21 @@ __global__ void __launch_bounds__(MAC_THREADS, MAC_MIN_BLOCKS) mac_rotate_ntt_in
         const uint32_t kw[4] = {kv.x, kv.y, kv.z, kv.w};
 #pragma unroll
         for (int cc = 0; cc < 4; ++cc) s64[cc] += (unsigned long long)d[cc] * kw[cc];
-        if (t_mode != 2 && wr[r] != 0u) {
+        if (wr[r] != 0u) {
 #pragma unroll
           for (int cc = 0; cc < 4; ++cc) t64[cc] += (unsigned long long)d[cc] * wr[r];
         }
       }
-      uint32_t s[4];
 #pragma unroll
       for (int cc = 0; cc < 4; ++cc) {
-        s[cc] = barrett(s64[cc], p, mu);
-        if (t_mode != 2) t[cc] = barrett(t64[cc], p, mu);
-      }
-      uint32_t val[4];
-#pragma unroll
-      for (int cc = 0; cc < 4; ++cc) {
+        const uint32_t s = barrett(s64[cc], p, mu);
+        const uint32_t t = barrett(t64[cc], p, mu);
         const uint32_t j = ((uint32_t)((cc & 1) * 2 + (cc >> 1)) * uk) & 3u;
-        uint32_t rot = shoup(s[cc], pwv, pwsv, p);
+        uint32_t rot = shoup(s, pwv, pwsv, p);
         if (j & 1u) rot = shoup(rot, rI, rIs, p);
         if ((j & 2u) && rot) rot = p - rot;
-        val[cc] = addmod(submod(rot, s[cc], p), t[cc], p);
-        vals[g * pitch + pad(idx0 + cc)] = val[cc];
+        vals[g * pitch + pad(idx0 + cc)] = addmod(submod(rot, s, p), t, p);
       }
-      if (t_mode != 0) st4(carry + arow + idx0, val[0], val[1], val[2], val[3]);
     }
     __syncthreads();  // the next stage() overwrites buffer ch % S
   }
@@ -426,17 +408,15 @@ static int launch_fwd(const uint32_t* acc, uint32_t* d_hat,
 
 template <int L>
 static int launch_mac(const uint32_t* d_hat, const uint32_t* key,
-                      const uint32_t* u,
-                      uint32_t* acc_out, uint32_t* carry,
+                      const uint32_t* u, uint32_t* acc_out,
                       const uint32_t* tables, const RnsConsts& c,
-                      const MacPlan& pl, int B, int m, int prune, int t_mode,
+                      const MacPlan& pl, int B, int m, int prune,
                       cudaStream_t stream) {
   if (pl.gates * (pl.chunk / 4) > pl.threads) return (int)cudaErrorInvalidValue;
   cudaError_t err = prepare(mac_rotate_ntt_inv_kernel<L>, pl.smem);
   if (err != cudaSuccess) return (int)err;
   mac_rotate_ntt_inv_kernel<L><<<pl.grid, pl.threads, pl.smem, stream>>>(
-      d_hat, key, u, acc_out, carry, tables, c, pl, B, m, log2i(m),
-      prune, t_mode);
+      d_hat, key, u, acc_out, tables, c, pl, B, m, log2i(m), prune);
   return (int)cudaGetLastError();
 }
 
@@ -444,9 +424,8 @@ extern "C" {
 
 // Each returns a cudaError_t (0 on success). `consts` is a host array laid
 // out as RnsConsts, `plan` one laid out as FwdPlan / MacPlan
-// (sgfhe_tpu_torch/ops/fused.py builds both). The MAC takes the key's
-// Shoup companions `key_s` with the key, as the plain version does, but
-// does not read them: its 64-bit sums need none.
+// (sgfhe_tpu_torch/ops/fused.py builds both). `key` is the step's key
+// slice, the hat alone.
 int sg_flatten_ntt_fwd(const uint32_t* acc, uint32_t* d_hat,
                        const uint32_t* tables, const uint32_t* consts, int B,
                        int L, int m, int prune, int close, int randomized,
@@ -473,11 +452,10 @@ int sg_flatten_ntt_fwd(const uint32_t* acc, uint32_t* d_hat,
 }
 
 int sg_mac_rotate_ntt_inv(const uint32_t* d_hat, const uint32_t* key,
-                          const uint32_t* key_s, const uint32_t* u,
-                          uint32_t* acc_out, uint32_t* carry,
+                          const uint32_t* u, uint32_t* acc_out,
                           const uint32_t* tables, const uint32_t* consts,
-                          int B, int L, int m, int prune, int t_mode,
-                          void* stream, const int32_t* plan) {
+                          int B, int L, int m, int prune, void* stream,
+                          const int32_t* plan) {
   RnsConsts c;
   std::memcpy(&c, consts, sizeof(c));
   MacPlan pl;
@@ -485,14 +463,14 @@ int sg_mac_rotate_ntt_inv(const uint32_t* d_hat, const uint32_t* key,
   cudaStream_t st = (cudaStream_t)stream;
   switch (L) {
     case 2:
-      return launch_mac<2>(d_hat, key, u, acc_out, carry, tables, c,
-                           pl, B, m, prune, t_mode, st);
+      return launch_mac<2>(d_hat, key, u, acc_out, tables, c, pl, B, m,
+                           prune, st);
     case 3:
-      return launch_mac<3>(d_hat, key, u, acc_out, carry, tables, c,
-                           pl, B, m, prune, t_mode, st);
+      return launch_mac<3>(d_hat, key, u, acc_out, tables, c, pl, B, m,
+                           prune, st);
     case 4:
-      return launch_mac<4>(d_hat, key, u, acc_out, carry, tables, c,
-                           pl, B, m, prune, t_mode, st);
+      return launch_mac<4>(d_hat, key, u, acc_out, tables, c, pl, B, m,
+                           prune, st);
     default:
       return (int)cudaErrorInvalidValue;
   }

@@ -60,9 +60,9 @@ def main(argv=None) -> dict:
         t0 = time.time()
         bkey = s2.BootstrapKey.create(ctx, sk, g)
         sync(dev)
-        key_s = time.time() - t0
+        keygen_s = time.time() - t0
         say(f"BootstrapKey (chunked, real): {bkey.hat.numel() * 8 / 2**30:.1f} GiB hat+shoup "
-            f"[{key_s:.1f}s]")
+            f"[{keygen_s:.1f}s]")
 
         m1 = params.m // M2
         mesh = mesh_mod.make_mesh(dp=1, tp=distributed.process_count())
@@ -105,7 +105,7 @@ def main(argv=None) -> dict:
             f"{params.Dr // 2}")
         return dict(params=params, ctx=ctx, sk=sk, bkey=bkey, rplan=rplan, mesh=mesh,
                     key_dist=hat_d, lx=lx, ly=ly, digit=digit, carry=carry, z=z,
-                    noise=noise, key_s=key_s, convert_s=convert_s, add_s=add_s)
+                    noise=noise, keygen_s=keygen_s, convert_s=convert_s, add_s=add_s)
     finally:
         if joined:
             dist.destroy_process_group()

@@ -9,14 +9,15 @@ against the key, multiply by x^{u_k} in the hat domain, inverse NTT.
 
 The rotation runs either as the twin (`_external_step`, plain PyTorch, the
 counterpart of the JAX package's jnp path) or through CUDA kernels.
-`_rotation_route` picks by the tensors' device and the key's size, never by
-an environment variable, as the JAX package's `_use_fused` does: CPU
-tensors take the twin; on CUDA tensors a key of at most 10 MiB with its
-companions takes "resident", the whole rotation in one launch
-(ops/fused.blind_rotate_fused, the JAX package's resident kernel) in every
-mode and at every prune, and a larger key "wmul", the step pair with the
-T-term by w-multiplies, 2n launches (ops/fused.blind_rotate_steps, its
-streamed kernel). `plain=True` forces the twin on any device.
+`_rotation_route` picks by the tensors' device and the key's size alone,
+never by an option or an environment variable: CPU tensors take the twin;
+on CUDA tensors a key of at most 10 MiB with its companions takes
+"resident", the whole rotation in one launch (ops/fused.blind_rotate_fused,
+the JAX package's resident kernel) in every mode and at every prune, and a
+larger key "wmul", the step pair with the T-term by w-multiplies, 2n
+launches (ops/fused.blind_rotate_steps, its streamed kernel). `blind_rotate`
+looks the route up at each call, so a check that wants the twin on the
+card substitutes `_rotation_route` for the duration of the call.
 
 Deterministic by default; pass two Threefry seed words for randomized
 flattening (ops/prg.py).
@@ -45,11 +46,10 @@ from .scheme1 import LWE, RLWE, Ciphertext, EncryptedBit, SchemeContext
 _RESIDENT_KEY_BYTES = 10 * 1024 * 1024
 
 
-def _rotation_route(params: Params, device: torch.device, prune: int,
-                    plain: bool) -> str:
+def _rotation_route(params: Params, device: torch.device) -> str:
     """'plain' (the twin), 'resident' or 'wmul' (the CUDA kernels). Every
-    prune takes the route of prune 0, as in the JAX package."""
-    if plain or device.type == "cpu":
+    prune takes the same route, as in the JAX package."""
+    if device.type == "cpu":
         return "plain"
     if device.type != "cuda":
         raise ValueError(f"no rotation path for device {device}")
@@ -79,21 +79,20 @@ def check_prune(params: Params, prune: int) -> None:
 
 
 def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
-                 seed2=None, prune: int = 0, *, plain: bool = False):
+                 seed2=None, prune: int = 0):
     """The n-step rotation: (a, b) <- (a, b) ⊙ ((x^{u_k}-1)·C_k + G) for
     k = 0..n-1, batched. ua: (B, n) exponents mod 2m; a_acc, b_acc:
-    (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32."""
+    (B, L, m) int64; bkey_hat/bkey_shoup: (n, 2l, 2, L, m) int32 (the
+    kernels read the hat alone)."""
     with profiling.span("rotate"):
         n = params.n
         check_prune(params, prune)
-        route = _rotation_route(params, a_acc.device, prune, plain)
+        route = _rotation_route(params, a_acc.device)
         if route == "resident":
             return fused_mod.blind_rotate_fused(ctx, bkey_hat, ua, a_acc, b_acc, seed2, prune)
         if route == "wmul":
             fused_mod.check_envelope(params)
-            return fused_mod.blind_rotate_steps(
-                ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc, seed2, prune,
-            )
+            return fused_mod.blind_rotate_steps(ctx, bkey_hat, ua, a_acc, b_acc, seed2, prune)
         for k in range(n):
             a_acc, b_acc = _external_step(
                 params, ctx, a_acc, b_acc, mm.u32(bkey_hat[k]), mm.u32(bkey_shoup[k]),
@@ -103,8 +102,7 @@ def blind_rotate(params, ctx, bkey_hat, bkey_shoup, ua, a_acc, b_acc,
 
 
 def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
-                       a1, b1, a2, b2, seed2=None, prune: int = 0, *,
-                       plain: bool = False, rotate=None):
+                       a1, b1, a2, b2, seed2=None, prune: int = 0, *, rotate=None):
     """Blind rotation + gate extraction (reference src/fhe.jl:559-595),
     batched. a1, a2: (B, n); b1, b2: (B,); all mod r. seed2: None or the two
     Threefry key words, used as given. rotate: None (`blind_rotate` on
@@ -126,8 +124,7 @@ def bootstrap_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
         a_acc = torch.zeros((batch, L, m), dtype=torch.int64, device=b_acc.device)
 
         if rotate is None:
-            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
-                                       plain=plain)
+            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup)
         a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
 
         i_and = 3 * m // 4
@@ -152,8 +149,7 @@ def _reduce_lwe(params: Params, ctx: SchemeContext, lwe_q) -> LWE:
 
 def bootstrap_batch(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
                     lwe1: LWE, lwe2: LWE, seed_words=None,
-                    epoch: "int | None" = None, prune: int = 0, *,
-                    plain: bool = False):
+                    epoch: "int | None" = None, prune: int = 0):
     """Batched gate bootstrap: returns (AND, OR, XOR) LWE batches mod r
     (reference src/fhe.jl:608-621).
 
@@ -164,10 +160,8 @@ def bootstrap_batch(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     admitted noise is asserted < Dr/16)."""
     with profiling.span("gates"):
         seed2 = prg.fold_epoch(seed_words, epoch)
-        triple = bootstrap_internal(
-            params, ctx, bkey_hat, bkey_shoup, lwe1.a, lwe1.b, lwe2.a, lwe2.b,
-            seed2, prune, plain=plain,
-        )
+        triple = bootstrap_internal(params, ctx, bkey_hat, bkey_shoup, lwe1.a, lwe1.b,
+                                    lwe2.a, lwe2.b, seed2, prune)
         return tuple(_reduce_lwe(params, ctx, t) for t in triple)
 
 
@@ -192,8 +186,7 @@ def bootstrap(params, ctx, bkey, enc_bit1: EncryptedBit, enc_bit2: EncryptedBit,
 
 def pack_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
                   enc_bits: LWE, boot_seed2=None, pack_seed2=None, *,
-                  plain: bool = False, keys: slice = slice(None), gather=None,
-                  reduce=None) -> RLWE:
+                  keys: slice = slice(None), gather=None, reduce=None) -> RLWE:
     """n LWE bits (n, n)/(n,) -> one RLWE over R_{m,r} (reference
     src/fhe.jl:660-696). The n trivial-input bootstraps run as one batch of
     n gates through the rotation; the n shortened external products are
@@ -215,10 +208,8 @@ def pack_internal(params: Params, ctx: SchemeContext, bkey_hat, bkey_shoup,
     # trivial LWE encrypting 1: a = 0, b = Dr (src/fhe.jl:670-671)
     a_triv = torch.zeros((shard, n), dtype=torch.int64, device=dev)
     b_triv = torch.full((shard,), params.Dr, dtype=torch.int64, device=dev)
-    (a_q, b_q), _, _ = bootstrap_internal(
-        params, ctx, bkey_hat, bkey_shoup, a_triv, b_triv, a_bits, b_bits,
-        boot_seed2, plain=plain,
-    )
+    (a_q, b_q), _, _ = bootstrap_internal(params, ctx, bkey_hat, bkey_shoup, a_triv, b_triv,
+                                          a_bits, b_bits, boot_seed2)
     if gather is not None:
         a_q, b_q = gather(a_q), gather(b_q)
     # polynomial i collects coefficient i of every gate's LWE (src/fhe.jl:675-678)
@@ -266,7 +257,7 @@ def _sum_mod(x, p):
 
 def pack_encrypted_bits(params: Params, ctx: SchemeContext, bkey,
                         enc_bits: EncryptedBit, seed_words=None,
-                        epoch: "int | None" = None, *, plain: bool = False) -> Ciphertext:
+                        epoch: "int | None" = None) -> Ciphertext:
     """n EncryptedBits -> one Ciphertext over R_{m,r}.
 
     seed_words: None (deterministic) or two uint32 words; a fresh epoch is
@@ -274,6 +265,5 @@ def pack_encrypted_bits(params: Params, ctx: SchemeContext, bkey,
     into the bootstraps' and the pack stage's (ops/prg.split_words)."""
     seed2 = prg.fold_epoch(seed_words, epoch)
     boot, pack = (None, None) if seed2 is None else prg.split_words(seed2, 2)
-    rlwe = pack_internal(params, ctx, bkey.hat, bkey.hat_shoup, enc_bits.lwe, boot, pack,
-                         plain=plain)
+    rlwe = pack_internal(params, ctx, bkey.hat, bkey.hat_shoup, enc_bits.lwe, boot, pack)
     return Ciphertext(params, rlwe)

@@ -5,10 +5,10 @@ eprint 2019/521).
 Every bootstrap here is one batched n-step blind rotation through the same
 rotation as scheme 1 (models/bootstrap.blind_rotate): the CUDA kernels for
 CUDA tensors (one rotate_resident launch for a key of at most 10 MiB, the
-step pair above that), their plain versions for CPU tensors, and the plain
-twin anywhere when `plain=True`. Each lane rotates its own test vector T by its
-own phase φ = z·Dr + w; extracting coefficient 0 and switching Q -> r gives
-a fresh encryption of f(z), with
+step pair above that) and their plain versions for CPU tensors, as
+models/bootstrap._rotation_route picks. Each lane rotates its own test
+vector T by its own phase φ = z·Dr + w; extracting coefficient 0 and
+switching Q -> r gives a fresh encryption of f(z), with
 
     T[j] = f((j + Dr/2) ÷ Dr) · DQ        for j in [0, m − Dr/2)
     T[j] = (−f(0)) · DQ                   for j in [m − Dr/2, m)
@@ -113,8 +113,7 @@ def tables_hat(params: Params, ctx: Scheme2Context, f_tables) -> torch.Tensor:
 
 
 def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
-                    ua, ub, t0, seed2=None, prune: int = 0, *,
-                    plain: bool = False, rotate=None) -> LWE:
+                    ua, ub, t0, seed2=None, prune: int = 0, *, rotate=None) -> LWE:
     """Rotate each lane's test vector t0 (M, L, m) (hat domain) by its phase
     (ua (M, n), ub (M,) mod r), extract coefficient 0, switch Q -> r.
     rotate: None (`blind_rotate` on bkey_hat/bkey_shoup) or another
@@ -126,8 +125,7 @@ def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
         b_acc = ntt_mod.ntt_inv(plan, ntt_mod.monomial_mul_hat(plan, t0, shift))
         a_acc = torch.zeros_like(b_acc)
         if rotate is None:
-            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup,
-                                       plain=plain)
+            rotate = functools.partial(blind_rotate, params, ctx, bkey_hat, bkey_shoup)
         a_acc, b_acc = rotate(ua, a_acc, b_acc, seed2=seed2, prune=prune)
         a_q = pol.extract(a_acc, 0, n, plan.p)  # (M, L, n)
         a_r = rns_mod.rescale_exact(ctx.rns_Q, a_q, params.r, params.moduli)
@@ -136,28 +134,25 @@ def _rotate_extract(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
 
 
 def bootstrap_internal(params: Params, ctx: Scheme2Context, bkey_hat, bkey_shoup,
-                       lwe_u: LWE, t_hats, seed2=None, prune: int = 0, *,
-                       plain: bool = False, rotate=None) -> LWE:
+                       lwe_u: LWE, t_hats, seed2=None, prune: int = 0, *, rotate=None) -> LWE:
     """F functions of each phase of lwe_u ((B, n)/(B,)) in one rotation of
     B·F gate-major lanes; seed2 used as given. Returns (B, F, n)/(B, F)."""
     B, F = lwe_u.a.shape[0], t_hats.shape[0]
     out = _rotate_extract(
         params, ctx, bkey_hat, bkey_shoup, lwe_u.a.repeat_interleave(F, dim=0),
-        lwe_u.b.repeat_interleave(F, dim=0), t_hats.repeat(B, 1, 1), seed2, prune,
-        plain=plain, rotate=rotate,
+        lwe_u.b.repeat_interleave(F, dim=0), t_hats.repeat(B, 1, 1), seed2, prune, rotate=rotate,
     )
     return LWE(out.a.reshape(B, F, params.n), out.b.reshape(B, F))
 
 
 def bootstrap(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe_u: LWE,
-              t_hats, seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-              plain: bool = False) -> LWE:
+              t_hats, seed_words=None, epoch: "int | None" = None, prune: int = 0) -> LWE:
     """Evaluate F functions of the phase of lwe_u in one batched rotation:
     out[:, f] is a fresh encryption of the f-th function of z. seed_words:
     None (deterministic) or two uint32 words, with a fresh epoch folded in
     per call unless `epoch` pins it."""
     return bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup, lwe_u, t_hats,
-                              prg.fold_epoch(seed_words, epoch), prune, plain=plain)
+                              prg.fold_epoch(seed_words, epoch), prune)
 
 
 def _lwe_sum(params: Params, *lwes: LWE) -> LWE:
@@ -171,8 +166,7 @@ def _select(out: LWE, f: int) -> LWE:
     return LWE(out.a[:, f], out.b[:, f])
 
 
-def _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry, seed2, prune: int = 0, *,
-                    plain: bool = False, rotate=None):
+def _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry, seed2, prune: int = 0, *, rotate=None):
     """add_with_carry on seed words used as given; bkey is None when
     `rotate` brings its own key."""
     k = params.k
@@ -181,41 +175,36 @@ def _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry, seed2, prune: int = 0,
     th = tables_hat(params, ctx, [[z % 2**k for z in range(zmax)],
                                   [int(z >= 2**k) for z in range(zmax)]])
     hat, shoup = (None, None) if bkey is None else (bkey.hat, bkey.hat_shoup)
-    out = bootstrap_internal(params, ctx, hat, shoup, u, th, seed2, prune, plain=plain,
-                             rotate=rotate)
+    out = bootstrap_internal(params, ctx, hat, shoup, u, th, seed2, prune, rotate=rotate)
     return _select(out, 0), _select(out, 1)
 
 
 def add_with_carry(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe1: LWE,
                    lwe2: LWE, carry: "LWE | None" = None, seed_words=None,
-                   epoch: "int | None" = None, prune: int = 0, *,
-                   plain: bool = False) -> tuple[LWE, LWE]:
+                   epoch: "int | None" = None, prune: int = 0) -> tuple[LWE, LWE]:
     """k-bit addition with carry: refreshed encryptions of (x + y + c) mod
     2^k and of the carry-out (x + y + c) >= 2^k, from one rotation (the two
     output functions ride as adjacent lanes)."""
     with profiling.span("digits"):
         return _add_with_carry(params, ctx, bkey, lwe1, lwe2, carry,
-                               prg.fold_epoch(seed_words, epoch), prune, plain=plain)
+                               prg.fold_epoch(seed_words, epoch), prune)
 
 
 def apply_lut(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe: LWE, lut,
-              seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-              plain: bool = False) -> LWE:
+              seed_words=None, epoch: "int | None" = None, prune: int = 0) -> LWE:
     """Any unary digit function f: [0, 2^k) -> [0, 2^k), `lut` its 2^k
     values, in one rotation. Single inputs never reach z >= 2^k, so the
     upper half of the table repeats the lower."""
     lut = list(lut)
     assert len(lut) == 2**params.k
     th = tables_hat(params, ctx, [lut + lut])
-    return _select(bootstrap(params, ctx, bkey, lwe, th, seed_words, epoch, prune,
-                             plain=plain), 0)
+    return _select(bootstrap(params, ctx, bkey, lwe, th, seed_words, epoch, prune), 0)
 
 
 def refresh(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe: LWE,
-            seed_words=None, epoch: "int | None" = None, *, plain: bool = False) -> LWE:
+            seed_words=None, epoch: "int | None" = None) -> LWE:
     """Noise reset: the identity table."""
-    return apply_lut(params, ctx, bkey, lwe, range(2**params.k), seed_words, epoch,
-                     plain=plain)
+    return apply_lut(params, ctx, bkey, lwe, range(2**params.k), seed_words, epoch)
 
 
 # ---------------------------------------------------------------------------
@@ -232,7 +221,7 @@ def _shifted_diff(params: Params, x: LWE, *subtract: LWE) -> LWE:
     return LWE(a & params.mask_r, b & params.mask_r)
 
 
-def _mul(params, ctx, bkey, lwe1, lwe2, seeds, prune: int = 0, *, plain: bool = False):
+def _mul(params, ctx, bkey, lwe1, lwe2, seeds, prune: int = 0):
     """The three rotation rounds of `mul`; seeds: three seed-word pairs (or
     None each), used as given."""
     K = 2**params.k
@@ -249,31 +238,28 @@ def _mul(params, ctx, bkey, lwe1, lwe2, seeds, prune: int = 0, *, plain: bool = 
                                    [q % K for q in qs_diff], [q // K for q in qs_diff]])
     ua = torch.stack([u_sum.a, u_sum.a, u_diff.a, u_diff.a], dim=1).reshape(4 * B, n)
     ub = torch.stack([u_sum.b, u_sum.b, u_diff.b, u_diff.b], dim=1).reshape(4 * B)
-    out1 = _rotate_extract(params, ctx, hat, shoup, ua, ub, th4.repeat(B, 1, 1), seeds[0],
-                           prune, plain=plain)
+    out1 = _rotate_extract(params, ctx, hat, shoup, ua, ub, th4.repeat(B, 1, 1), seeds[0], prune)
     s_lo, s_hi, d_lo, d_hi = (LWE(out1.a[i::4], out1.b[i::4]) for i in range(4))
 
     # round 2: v = s_lo - d_lo in (-K, K): v mod K and the borrow [v < 0]
     th2 = tables_hat(params, ctx, [[(z - K) % K for z in range(2 * K)],
                                    [int(z < K) for z in range(2 * K)]])
     out2 = bootstrap_internal(params, ctx, hat, shoup, _shifted_diff(params, s_lo, d_lo),
-                              th2, seeds[1], prune, plain=plain)
+                              th2, seeds[1], prune)
     lo, borrow = _select(out2, 0), _select(out2, 1)
 
     # round 3: the high digit s_hi - d_hi - borrow, in [0, K) for a product
     th1 = tables_hat(params, ctx, [[(z - K) % K for z in range(2 * K)]])
     out3 = bootstrap_internal(params, ctx, hat, shoup,
-                              _shifted_diff(params, s_hi, d_hi, borrow), th1, seeds[2],
-                              prune, plain=plain)
+                              _shifted_diff(params, s_hi, d_hi, borrow), th1, seeds[2], prune)
     return lo, _select(out3, 0)
 
 
 def mul(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, lwe1: LWE, lwe2: LWE,
-        seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-        plain: bool = False) -> tuple[LWE, LWE]:
+        seed_words=None, epoch: "int | None" = None, prune: int = 0) -> tuple[LWE, LWE]:
     """k-bit digit multiplication x·y -> (low digit, high digit), both
     refreshed, by the quarter-squares identity x·y = ⌊(x+y)²/4⌋ − ⌊(x−y)²/4⌋
     in three rotation rounds (4, 2 and 1 lanes a pair)."""
     seed2 = prg.fold_epoch(seed_words, epoch)
     seeds = (None,) * 3 if seed2 is None else prg.split_words(seed2, 3)
-    return _mul(params, ctx, bkey, lwe1, lwe2, seeds, prune, plain=plain)
+    return _mul(params, ctx, bkey, lwe1, lwe2, seeds, prune)

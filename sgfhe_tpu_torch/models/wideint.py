@@ -4,8 +4,7 @@ sgfhe_tpu/models/wideint.py; eprint 2019/521 §1).
 Numbers are little-endian lists of W digit ciphertexts, each a (B, n) LWE
 batch of B independent integers. Every op composes the functional
 bootstrap of models/bootstrap2.py, so each rotation runs through the CUDA
-rotation kernels on the card and through their plain versions on the CPU
-(`plain=True` forces the plain versions anywhere):
+rotation kernels on the card and through their plain versions on the CPU:
 
  - `add_wide`: ripple carry, W rotations, W + 1 digits out;
  - `mul_wide`: all W² digit products in one batched `mul` (3 rotation
@@ -96,7 +95,7 @@ def _zero_like(lwe: LWE) -> LWE:
 # ---------------------------------------------------------------------------
 
 
-def _add_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool = False):
+def _add_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0):
     """`add_wide` with its W rotations' seed words given."""
     W = len(xs)
     assert len(ys) == W
@@ -104,20 +103,18 @@ def _add_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool =
     carry = None
     out = []
     for j in range(W):
-        d, carry = bs2._add_with_carry(params, ctx, bkey, xs[j], ys[j], carry, next(it), prune,
-                                       plain=plain)
+        d, carry = bs2._add_with_carry(params, ctx, bkey, xs[j], ys[j], carry, next(it), prune)
         out.append(d)
     out.append(carry)
     return out
 
 
 def add_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-             ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-             plain: bool = False) -> list[LWE]:
+             ys: list[LWE], seed_words=None, epoch: "int | None" = None,
+             prune: int = 0) -> list[LWE]:
     """Ripple-carry addition of two W-digit numbers -> W + 1 digits (the
     last is the carry-out bit). W rotations, each batched over B."""
-    return _add_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs)), prune,
-                     plain=plain)
+    return _add_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs)), prune)
 
 
 def _mul_wide_adds(W: int) -> int:
@@ -135,7 +132,7 @@ def _mul_wide_adds(W: int) -> int:
     return adds
 
 
-def _mul_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool = False):
+def _mul_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0):
     """`mul_wide` with its rotations' seed words given: three for the
     digit products' `mul` rounds, then one per column addition."""
     W = len(xs)
@@ -147,8 +144,7 @@ def _mul_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool =
              torch.cat([xs[i].b for i in range(W) for _ in range(W)]))
     l2 = LWE(torch.cat([ys[j].a for _ in range(W) for j in range(W)]),
              torch.cat([ys[j].b for _ in range(W) for j in range(W)]))
-    lo, hi = bs2._mul(params, ctx, bkey, l1, l2, (next(it), next(it), next(it)), prune,
-                      plain=plain)
+    lo, hi = bs2._mul(params, ctx, bkey, l1, l2, (next(it), next(it), next(it)), prune)
 
     cols: list[list[LWE]] = [[] for _ in range(2 * W + 1)]
     for i in range(W):
@@ -163,8 +159,7 @@ def _mul_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool =
         while len(pend) > 1:
             a = pend.pop()
             b = pend.pop()
-            d, carry = bs2._add_with_carry(params, ctx, bkey, a, b, None, next(it), prune,
-                                           plain=plain)
+            d, carry = bs2._add_with_carry(params, ctx, bkey, a, b, None, next(it), prune)
             pend.append(d)
             cols[c + 1].append(carry)
         out.append(pend[0] if pend else _zero_like(out[0]))
@@ -172,8 +167,8 @@ def _mul_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool =
 
 
 def mul_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-             ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-             plain: bool = False) -> list[LWE]:
+             ys: list[LWE], seed_words=None, epoch: "int | None" = None,
+             prune: int = 0) -> list[LWE]:
     """Schoolbook multiplication of two W-digit numbers -> 2W digits.
 
     All W² digit products run as one batched quarter-squares `mul` (3
@@ -181,7 +176,7 @@ def mul_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[L
     add_with_carry, feeding carries into the next column. The carry out of
     column 2W-1 is zero ((2^{kW}-1)² < 2^{2kW}) and is dropped."""
     seeds = _split(seed_words, epoch, 3 + _mul_wide_adds(len(xs)))
-    return _mul_wide(params, ctx, bkey, xs, ys, seeds, prune, plain=plain)
+    return _mul_wide(params, ctx, bkey, xs, ys, seeds, prune)
 
 
 # ---------------------------------------------------------------------------
@@ -210,7 +205,7 @@ def flag_not(params: Params, lwe: LWE) -> LWE:
     return LWE((-lwe.a) & params.mask_r, (params.Dr - lwe.b) & params.mask_r)
 
 
-def _sub_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool = False):
+def _sub_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0):
     """`sub_wide` with its W rotations' seed words given."""
     W = len(xs)
     assert len(ys) == W
@@ -219,48 +214,44 @@ def _sub_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool =
     out = []
     for j in range(W):
         d, carry = bs2._add_with_carry(params, ctx, bkey, xs[j], complement_digit(params, ys[j]),
-                                       carry, next(it), prune, plain=plain)
+                                       carry, next(it), prune)
         out.append(d)
     return out, carry
 
 
 def sub_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-             ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-             plain: bool = False) -> tuple[list[LWE], LWE]:
+             ys: list[LWE], seed_words=None, epoch: "int | None" = None,
+             prune: int = 0) -> tuple[list[LWE], LWE]:
     """Two's-complement subtraction x - y = x + comp(y) + 1 digit-wise.
 
     Returns (diff, ge): diff = (x - y) mod 2^{kW} as W refreshed digits and
     ge = the final carry, an encrypted [x >= y] flag (carry-out == no
     borrow). W rotations, each batched over B; digit sums stay in
     [0, 2^{k+1}), the domain add_with_carry evaluates over."""
-    return _sub_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs)), prune,
-                     plain=plain)
+    return _sub_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs)), prune)
 
 
 def ge_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-            ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-            plain: bool = False) -> LWE:
+            ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0) -> LWE:
     """Encrypted [x >= y] flag (W rotations; the diff digits are
     discarded)."""
-    return sub_wide(params, ctx, bkey, xs, ys, seed_words, epoch, prune, plain=plain)[1]
+    return sub_wide(params, ctx, bkey, xs, ys, seed_words, epoch, prune)[1]
 
 
-def _flag_and(params, ctx, bkey, f1, f2, seed2, prune: int = 0, *, plain: bool = False):
+def _flag_and(params, ctx, bkey, f1, f2, seed2, prune: int = 0):
     """`flag_and` with its rotation's seed words given."""
     zmax = 2 ** (params.k + 1)
     th = bs2.tables_hat(params, ctx, [[1 if z >= 2 else 0 for z in range(zmax)]])
     out = bs2.bootstrap_internal(params, ctx, bkey.hat, bkey.hat_shoup,
-                                 bs2._lwe_sum(params, f1, f2), th, seed2, prune, plain=plain)
+                                 bs2._lwe_sum(params, f1, f2), th, seed2, prune)
     return LWE(out.a[:, 0], out.b[:, 0])
 
 
 def flag_and(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, f1: LWE, f2: LWE,
-             seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-             plain: bool = False) -> LWE:
+             seed_words=None, epoch: "int | None" = None, prune: int = 0) -> LWE:
     """AND of two 0/1 flag digits in one rotation: the table [f1 + f2 >= 2]
     over the combined domain (every k, k = 1 included)."""
-    return _flag_and(params, ctx, bkey, f1, f2, _split(seed_words, epoch, 1)[0], prune,
-                     plain=plain)
+    return _flag_and(params, ctx, bkey, f1, f2, _split(seed_words, epoch, 1)[0], prune)
 
 
 def _scale_flag(params: Params, flag: LWE) -> LWE:
@@ -273,8 +264,7 @@ def _scale_flag(params: Params, flag: LWE) -> LWE:
     return LWE((flag.a * K) & params.mask_r, (flag.b * K) & params.mask_r)
 
 
-def _mux_pass(params, ctx, bkey, flag, pairs, seed2, prune: int = 0, *,
-              plain: bool = False) -> list[list[LWE]]:
+def _mux_pass(params, ctx, bkey, flag, pairs, seed2, prune: int = 0) -> list[list[LWE]]:
     """The mux engine, its rotation's seed words used as given: for each
     (xs, ys) pair and each digit j, flag ? xs[j] : ys[j]. All selections
     ride one batched rotation, 2 lanes per (pair, digit): lane A has phase
@@ -302,7 +292,7 @@ def _mux_pass(params, ctx, bkey, flag, pairs, seed2, prune: int = 0, *,
     # each (pair, digit, table) lane is B consecutive rows
     t0 = th[torch.tensor(t_idx, device=th.device)].repeat_interleave(B, dim=0)
     out = bs2._rotate_extract(params, ctx, bkey.hat, bkey.hat_shoup, torch.cat(lanes_a),
-                              torch.cat(lanes_b), t0, seed2, prune, plain=plain)
+                              torch.cat(lanes_b), t0, seed2, prune)
     results, lane = [], 0
     for xs, _ in pairs:
         sel = []
@@ -317,35 +307,32 @@ def _mux_pass(params, ctx, bkey, flag, pairs, seed2, prune: int = 0, *,
 
 def select_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, flag: LWE,
                 xs: list[LWE], ys: list[LWE], seed_words=None, epoch: "int | None" = None,
-                prune: int = 0, *, plain: bool = False) -> list[LWE]:
+                prune: int = 0) -> list[LWE]:
     """Encrypted branchless select: flag ? x : y digit-wise, where `flag` is
     a refreshed 0/1 flag ciphertext (a `ge_wide` or `eq_wide` output). One
     rotation pass of 2W lanes; the data path never learns which branch was
     taken."""
     return _mux_pass(params, ctx, bkey, flag, [(xs, ys)], _split(seed_words, epoch, 1)[0],
-                     prune, plain=plain)[0]
+                     prune)[0]
 
 
-def _min_max_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool = False):
+def _min_max_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0):
     """`min_max_wide` with its W + 1 rotations' seed words given: W for
     the comparison, then the mux pass's."""
     W = len(xs)
     it = _iter(seeds)
-    _, ge = _sub_wide(params, ctx, bkey, xs, ys, [next(it) for _ in range(W)], prune,
-                      plain=plain)
-    mins, maxs = _mux_pass(params, ctx, bkey, ge, [(ys, xs), (xs, ys)], next(it), prune,
-                           plain=plain)
+    _, ge = _sub_wide(params, ctx, bkey, xs, ys, [next(it) for _ in range(W)], prune)
+    mins, maxs = _mux_pass(params, ctx, bkey, ge, [(ys, xs), (xs, ys)], next(it), prune)
     return mins, maxs
 
 
 def min_max_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-                 ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0,
-                 *, plain: bool = False) -> tuple[list[LWE], list[LWE]]:
+                 ys: list[LWE], seed_words=None, epoch: "int | None" = None,
+                 prune: int = 0) -> tuple[list[LWE], list[LWE]]:
     """Encrypted (min, max) of two W-digit numbers: one `ge_wide`
     comparison (W rotations) and one shared mux pass of 4W lanes (both
     selections reuse the flag). W + 1 rotation passes."""
-    return _min_max_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs) + 1),
-                         prune, plain=plain)
+    return _min_max_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, len(xs) + 1), prune)
 
 
 def _oddeven_pairs(N: int) -> list[tuple[int, int]]:
@@ -366,7 +353,7 @@ def _oddeven_pairs(N: int) -> list[tuple[int, int]]:
     return pairs
 
 
-def _sort_wide(params, ctx, bkey, items, seeds, prune: int = 0, *, plain: bool = False):
+def _sort_wide(params, ctx, bkey, items, seeds, prune: int = 0):
     """`sort_wide` with its rotations' seed words given: W + 1 for each
     comparator in network order."""
     W = len(items[0])
@@ -374,37 +361,32 @@ def _sort_wide(params, ctx, bkey, items, seeds, prune: int = 0, *, plain: bool =
     items = list(items)
     for i, j in _oddeven_pairs(len(items)):
         items[i], items[j] = _min_max_wide(params, ctx, bkey, items[i], items[j],
-                                           [next(it) for _ in range(W + 1)], prune, plain=plain)
+                                           [next(it) for _ in range(W + 1)], prune)
     return items
 
 
 def sort_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey,
               items: list[list[LWE]], seed_words=None, epoch: "int | None" = None,
-              prune: int = 0, *, plain: bool = False) -> list[list[LWE]]:
+              prune: int = 0) -> list[list[LWE]]:
     """Sort N encrypted W-digit numbers ascending, obliviously: a Batcher
     odd-even merge network of `min_max_wide` compare-exchanges (O(N log²N)
     comparators, each W + 1 rotation passes batched over B). The execution
     trace is data-independent."""
     count = len(_oddeven_pairs(len(items))) * (len(items[0]) + 1)
-    return _sort_wide(params, ctx, bkey, items, _split(seed_words, epoch, count), prune,
-                      plain=plain)
+    return _sort_wide(params, ctx, bkey, items, _split(seed_words, epoch, count), prune)
 
 
-def _eq_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0, *, plain: bool = False):
+def _eq_wide(params, ctx, bkey, xs, ys, seeds, prune: int = 0):
     """`eq_wide` with its 2W + 1 rotations' seed words given: W for each
     comparison, then the AND's."""
     W = len(xs)
     it = _iter(seeds)
-    ge_xy = _sub_wide(params, ctx, bkey, xs, ys, [next(it) for _ in range(W)], prune,
-                      plain=plain)[1]
-    ge_yx = _sub_wide(params, ctx, bkey, ys, xs, [next(it) for _ in range(W)], prune,
-                      plain=plain)[1]
-    return _flag_and(params, ctx, bkey, ge_xy, ge_yx, next(it), prune, plain=plain)
+    ge_xy = _sub_wide(params, ctx, bkey, xs, ys, [next(it) for _ in range(W)], prune)[1]
+    ge_yx = _sub_wide(params, ctx, bkey, ys, xs, [next(it) for _ in range(W)], prune)[1]
+    return _flag_and(params, ctx, bkey, ge_xy, ge_yx, next(it), prune)
 
 
 def eq_wide(params: Params, ctx: Scheme2Context, bkey: BootstrapKey, xs: list[LWE],
-            ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0, *,
-            plain: bool = False) -> LWE:
+            ys: list[LWE], seed_words=None, epoch: "int | None" = None, prune: int = 0) -> LWE:
     """Encrypted [x == y] flag: ge(x, y) AND ge(y, x), 2W + 1 rotations."""
-    return _eq_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, 2 * len(xs) + 1),
-                    prune, plain=plain)
+    return _eq_wide(params, ctx, bkey, xs, ys, _split(seed_words, epoch, 2 * len(xs) + 1), prune)

@@ -21,13 +21,9 @@ For larger keys one step is two CUDA launches and the n-step loop
                        balanced mixed-radix digits of both accumulators
                        (Threefry-masked in randomized mode), forward NTT.
   mac_rotate_ntt_inv   d_hat + key slice of step k -> new acc (2, B, L, m):
-                       Shoup MAC against the key, T-term, x^{u_k}, inverse
-                       NTT. t_mode 0 computes T by w-multiplies (the
-                       streamed TPU kernel); t_mode 1 also writes val to
-                       `carry` and t_mode 2 reads T from it (the resident
-                       TPU kernel's hat-carry, valid only when prune == 0;
-                       kept so that the step pair can be timed against
-                       rotate_resident on the same batch).
+                       MAC against the key, T-term by w-multiplies (as the
+                       streamed TPU kernel computes it), x^{u_k}, inverse
+                       NTT.
 
 Tensors the wrappers take and return are int32 holding uint32 bit patterns
 (ops/modmath.py); their layouts are the kernels'. A wrapper launches its
@@ -244,16 +240,12 @@ def flatten_ntt_fwd_plain(ctx, acc, step: int, seed2=None, prune: int = 0):
     return d_hat.to(torch.int32)
 
 
-def mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, key_shoup, step: int, u,
-                             prune: int = 0, t_mode: int = 0, carry=None):
+def mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, step: int, u, prune: int = 0):
     """Plain version of the mac_rotate_ntt_inv kernel, on its layouts."""
-    t = (mm.u32(carry[0]), mm.u32(carry[1])) if t_mode == 2 else None
-    a, b, va, vb = mac_rotate_ntt_inv_i64(
-        ctx, mm.u32(d_hat), mm.u32(key_hat[step]), mm.u32(key_shoup[step]),
-        mm.u32(u), prune, t,
-    )
-    if t_mode:
-        carry.copy_(torch.stack([va, vb]).to(torch.int32))
+    ck = mm.u32(key_hat[step])
+    # the MAC's Shoup products are exact remainders (mm.shoup_mul): the
+    # key's companions are not needed
+    a, b, _, _ = mac_rotate_ntt_inv_i64(ctx, mm.u32(d_hat), ck, ck, mm.u32(u), prune)
     return torch.stack([a, b]).to(torch.int32)
 
 
@@ -602,19 +594,11 @@ def flatten_ntt_fwd(ctx, acc, step: int, seed2=None, prune: int = 0):
 flatten_ntt_fwd.launches = 0
 
 
-def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
-                       prune: int = 0, t_mode: int = 0, carry=None):
-    """d_hat (B, 2(L-prune), L, m), key (n, 2L, 2, L, m), u (B,) exponents of
-    this step -> new acc (2, B, L, m); carry (2, B, L, m) is written for
-    t_mode 1 and read and written for t_mode 2 (see module doc)."""
-    assert t_mode in (0, 1, 2)
-    assert t_mode == 0 or (prune == 0 and carry is not None), (
-        "hat-carry T-term represents the UNpruned accumulator"
-    )
+def mac_rotate_ntt_inv(ctx, d_hat, key_hat, step: int, u, prune: int = 0):
+    """d_hat (B, 2(L-prune), L, m), key_hat (n, 2L, 2, L, m), u (B,)
+    exponents of this step -> new acc (2, B, L, m); see module doc."""
     if d_hat.device.type == "cpu":
-        return mac_rotate_ntt_inv_plain(
-            ctx, d_hat, key_hat, key_shoup, step, u, prune, t_mode, carry
-        )
+        return mac_rotate_ntt_inv_plain(ctx, d_hat, key_hat, step, u, prune)
     _require_cuda(d_hat)
     ft, L, m = _common(ctx, d_hat)
     B = d_hat.shape[0]
@@ -623,10 +607,7 @@ def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
     dev = d_hat.device
     _check("d_hat", d_hat, (B, 2 * (L - prune), L, m), dev)
     _check("key_hat", key_hat, (n, 2 * L, 2, L, m), dev)
-    _check("key_shoup", key_shoup, (n, 2 * L, 2, L, m), dev)
     _check("u", u, (B,), dev)
-    if t_mode:
-        _check("carry", carry, (2, B, L, m), dev)
     from .. import _build
 
     plan = mac_plan(B, L, m, prune, _sm_count(dev.index or 0)).words()
@@ -634,11 +615,9 @@ def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
     acc = torch.empty((2, B, L, m), dtype=torch.int32, device=dev)
     step_bytes = key_hat[0].numel() * 4
     rc = lib.sg_mac_rotate_ntt_inv(
-        d_hat.data_ptr(), key_hat.data_ptr() + step * step_bytes,
-        key_shoup.data_ptr() + step * step_bytes, u.data_ptr(), acc.data_ptr(),
-        carry.data_ptr() if t_mode else None, ft.tables.data_ptr(),
-        ft.consts.ctypes.data_as(ctypes.c_void_p),
-        B, L, m, prune, t_mode, torch.cuda.current_stream().cuda_stream,
+        d_hat.data_ptr(), key_hat.data_ptr() + step * step_bytes, u.data_ptr(),
+        acc.data_ptr(), ft.tables.data_ptr(), ft.consts.ctypes.data_as(ctypes.c_void_p),
+        B, L, m, prune, torch.cuda.current_stream().cuda_stream,
         plan.ctypes.data_as(ctypes.c_void_p),
     )
     if rc != 0:
@@ -650,25 +629,17 @@ def mac_rotate_ntt_inv(ctx, d_hat, key_hat, key_shoup, step: int, u,
 mac_rotate_ntt_inv.launches = 0
 
 
-def blind_rotate_steps(ctx, bkey_hat, bkey_shoup, ua, a0, b0, seed2=None,
-                       prune: int = 0, carry: bool = False):
+def blind_rotate_steps(ctx, bkey_hat, ua, a0, b0, seed2=None, prune: int = 0):
     """The n-step rotation through the two step wrappers: 2n launches on
-    CUDA tensors (the streamed route; carry=True only where the step pair
-    is timed against rotate_resident). ua (B, n) exponents mod 2m; a0, b0
-    (B, L, m) int64 canonical. carry=True takes the T-term from the last
-    step's val (t_mode 2; step 0 computes it by w-multiplies and writes
-    it). Returns the accumulators as int64 (B, L, m)."""
-    assert not (carry and prune), "hat-carry needs prune == 0"
+    CUDA tensors (the streamed route). ua (B, n) exponents mod 2m; a0, b0
+    (B, L, m) int64 canonical; bkey_hat (n, 2l, 2, L, m) int32, the hat
+    alone. Returns the accumulators as int64 (B, L, m)."""
     n = bkey_hat.shape[0]
     acc = torch.stack([a0, b0]).to(torch.int32).contiguous()
     u_steps = ua.t().contiguous().to(torch.int32)
-    carry_buf = torch.empty_like(acc) if carry else None
     for k in range(n):
         d_hat = flatten_ntt_fwd(ctx, acc, k, seed2, prune)
-        t_mode = 0 if not carry else (1 if k == 0 else 2)
-        acc = mac_rotate_ntt_inv(
-            ctx, d_hat, bkey_hat, bkey_shoup, k, u_steps[k], prune, t_mode, carry_buf
-        )
+        acc = mac_rotate_ntt_inv(ctx, d_hat, bkey_hat, k, u_steps[k], prune)
     return acc[0].to(torch.int64), acc[1].to(torch.int64)
 
 

@@ -120,27 +120,25 @@ def _rotation_inputs(s, seed):
 
 
 @pytest.mark.parametrize(
-    "case,prune,seed2,carry",
+    "case,prune,seed2",
     [
-        ("exact-carry", 0, None, True),
-        ("exact-wmul", 0, None, False),
-        ("prune1-wmul", 1, None, False),
-        ("randomized-carry", 0, (0x9E3779B9, 12345), True),
-        ("big-limbs-carry", 0, None, True),
-        ("big-limbs-wmul", 0, None, False),
+        ("randomized-wmul", 0, (0x9E3779B9, 12345)),
+        ("exact-wmul", 0, None),
+        ("prune1-wmul", 1, None),
+        ("randomized-prune1-wmul", 1, (0x9E3779B9, 12345)),
+        ("prune2-wmul", 2, None),
+        ("big-limbs-wmul", 0, None),
     ],
 )
-def test_step_wrappers_equal_twin(ref64, big_limbs, case, prune, seed2, carry):
-    """The two step wrappers' plain versions, looped as on the card, in both
-    T-modes, equal the twin's rotation."""
+def test_step_wrappers_equal_twin(ref64, big_limbs, case, prune, seed2):
+    """The two step wrappers' plain versions, looped as on the card, equal
+    the twin's rotation."""
     s = big_limbs if case.startswith("big") else ref64
     tctx, ua, a0, b0 = _rotation_inputs(s, 5)
     want = tbs.blind_rotate(
         s["params"], tctx, s["tbk"].hat, s["tbk"].hat_shoup, ua, a0, b0, seed2, prune
     )
-    got = tfused.blind_rotate_steps(
-        tctx, s["tbk"].hat, s["tbk"].hat_shoup, ua, a0, b0, seed2, prune, carry=carry
-    )
+    got = tfused.blind_rotate_steps(tctx, s["tbk"].hat, ua, a0, b0, seed2, prune)
     for w, g in zip(want, got):
         assert torch.equal(w, g)
 
@@ -154,8 +152,7 @@ def test_prune_guard(ref64):
 def test_route_follows_device_and_key_size():
     p64, p512 = T.Params.create(64), T.Params.create(512)
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
-    assert tbs._rotation_route(p64, cpu, 0, False) == "plain"
-    assert tbs._rotation_route(p64, cuda, 0, True) == "plain"
-    assert tbs._rotation_route(p64, cuda, 0, False) == "resident"
-    assert tbs._rotation_route(p64, cuda, 1, False) == "resident"
-    assert tbs._rotation_route(p512, cuda, 0, False) == "wmul"
+    assert tbs._rotation_route(p64, cpu) == "plain"
+    assert tbs._rotation_route(p512, cpu) == "plain"
+    assert tbs._rotation_route(p64, cuda) == "resident"
+    assert tbs._rotation_route(p512, cuda) == "wmul"

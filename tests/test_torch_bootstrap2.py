@@ -193,12 +193,11 @@ def test_rotation_reads_generic_params_fields():
     paper k = 1 (576 MiB) keys the step pair with w-multiplies."""
     cpu, cuda = torch.device("cpu"), torch.device("cuda")
     k1, k2, paper = (ts2.Params.create(1, 64), ts2.Params.create(2, 64), ts2.Params.create(1))
-    assert tbs._rotation_route(k1, cpu, 0, False) == "plain"
-    assert tbs._rotation_route(k1, cuda, 0, False) == "resident"
-    assert tbs._rotation_route(k1, cuda, 1, False) == "resident"
-    assert tbs._rotation_route(k2, cuda, 0, False) == "wmul"
-    assert tbs._rotation_route(paper, cuda, 0, False) == "wmul"
-    assert tbs._rotation_route(paper, cuda, 0, True) == "plain"
+    assert tbs._rotation_route(k1, cpu) == "plain"
+    assert tbs._rotation_route(paper, cpu) == "plain"
+    assert tbs._rotation_route(k1, cuda) == "resident"
+    assert tbs._rotation_route(k2, cuda) == "wmul"
+    assert tbs._rotation_route(paper, cuda) == "wmul"
     for p in (k1, k2, paper):
         ref = rs2.Params.create(p.k, p.n)
         assert tparams.prune_error_bound(p, 1) == rparams.prune_error_bound(ref, 1)

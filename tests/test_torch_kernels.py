@@ -31,13 +31,15 @@ def _card():
     return torch.device("cuda")
 
 
+def _twin_route(params, device):
+    """Stands in for models/bootstrap._rotation_route: the twin on any device."""
+    return "plain"
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize(
-    "prune,seed2,carry",
-    [(0, None, True), (0, None, False), (1, None, False), (2, None, False),
-     (0, (7, 8), True), (1, (7, 8), False)],
-)
-def test_kernels_equal_twin_on_card(prune, seed2, carry):
+@pytest.mark.parametrize("prune", [0, 1, 2])
+@pytest.mark.parametrize("seed2", [None, (7, 8)], ids=["exact", "randomized"])
+def test_kernels_equal_twin_on_card(monkeypatch, prune, seed2):
     """Every mode of the step kernels against the twin at Params(64) with
     port-made keys."""
     dev = _card()
@@ -52,11 +54,11 @@ def test_kernels_equal_twin_on_card(prune, seed2, carry):
     ua = torch.as_tensor(rng.integers(0, 2 * m, (B, params.n)), device=dev)
     a0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
     b0 = torch.as_tensor(rng.integers(0, 1 << 30, (B, L, m)) % p, device=dev)
-    want = tbs.blind_rotate(params, ctx, bk.hat, bk.hat_shoup, ua, a0, b0,
-                            seed2, prune, plain=True)
+    with monkeypatch.context() as mp:
+        mp.setattr(tbs, "_rotation_route", _twin_route)
+        want = tbs.blind_rotate(params, ctx, bk.hat, bk.hat_shoup, ua, a0, b0, seed2, prune)
     before = tfused.flatten_ntt_fwd.launches, tfused.mac_rotate_ntt_inv.launches
-    got = tfused.blind_rotate_steps(ctx, bk.hat, bk.hat_shoup, ua, a0, b0,
-                                    seed2, prune, carry=carry)
+    got = tfused.blind_rotate_steps(ctx, bk.hat, ua, a0, b0, seed2, prune)
     torch.cuda.synchronize()
     after = tfused.flatten_ntt_fwd.launches, tfused.mac_rotate_ntt_inv.launches
     assert after == (before[0] + params.n, before[1] + params.n)
@@ -132,8 +134,8 @@ def _ragged_batch(L, m, prune):
 def test_step_kernels_equal_plain_on_card(L, m, ragged):
     """One step of each kernel against its plain version on random
     canonical inputs and a random key slice, near-2^29 moduli, every prune,
-    exact and randomized flatten, every T-mode; B = 1, or a batch whose
-    last gate tile is partial."""
+    exact and randomized flatten; B = 1, or a batch whose last gate tile
+    is partial."""
     dev = _card()
     mods = primes.find_rns_primes(2 * m, 1 << (29 * L - 2), (1 << (29 * L - 1)) - 1, L)
     params = dataclasses.replace(T.Params.create(m // 8), moduli=mods)
@@ -147,8 +149,7 @@ def test_step_kernels_equal_plain_on_card(L, m, ragged):
     def on_card(a):
         return mm.bits32(torch.as_tensor(a, device=dev))
 
-    key = canon((1, 2 * L, 2, L, m))
-    key_hat, key_s = on_card(key), on_card((key << 32) // p)
+    key_hat = on_card(canon((1, 2 * L, 2, L, m)))
     for prune in range(L):
         B = _ragged_batch(L, m, prune) if ragged else 1
         acc = on_card(canon((2, B, L, m)))
@@ -157,21 +158,14 @@ def test_step_kernels_equal_plain_on_card(L, m, ragged):
             got = tfused.flatten_ntt_fwd(ctx, acc, 3, seed2, prune)
             want = tfused.flatten_ntt_fwd_plain(ctx, acc, 3, seed2, prune)
             assert torch.equal(got, want), (prune, seed2)
-        for t_mode in ((0, 1, 2) if prune == 0 else (0,)):
-            carry_k = on_card(canon((2, B, L, m))) if t_mode else None
-            carry_p = carry_k.clone() if t_mode else None
-            got = tfused.mac_rotate_ntt_inv(ctx, want, key_hat, key_s, 0, u, prune,
-                                            t_mode, carry_k)
-            exp = tfused.mac_rotate_ntt_inv_plain(ctx, want, key_hat, key_s, 0, u,
-                                                  prune, t_mode, carry_p)
-            assert torch.equal(got, exp), (prune, t_mode)
-            if t_mode:
-                assert torch.equal(carry_k, carry_p), (prune, t_mode)
+        got = tfused.mac_rotate_ntt_inv(ctx, want, key_hat, 0, u, prune)
+        exp = tfused.mac_rotate_ntt_inv_plain(ctx, want, key_hat, 0, u, prune)
+        assert torch.equal(got, exp), prune
 
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("k", [1, 2])
-def test_scheme2_add_with_carry_on_card_equals_twin(k):
+def test_scheme2_add_with_carry_on_card_equals_twin(monkeypatch, k):
     """Scheme 2 at the toy n = 64 with port-made keys: the k = 1 key (4
     MiB) takes rotate_resident, one launch a rotation, the k = 2 key (18
     MiB) the step pair with w-multiplies;
@@ -185,7 +179,7 @@ def test_scheme2_add_with_carry_on_card_equals_twin(k):
     sk = S2.PrivateKey.create(params, g, device=dev)
     bk = S2.BootstrapKey.create(ctx, sk, g)
     resident = k == 1
-    assert tbs._rotation_route(params, dev, 0, False) == ("resident" if resident else "wmul")
+    assert tbs._rotation_route(params, dev) == ("resident" if resident else "wmul")
     x = torch.randint(0, 2**k, (params.n,), generator=g)
     y = torch.randint(0, 2**k, (params.n,), generator=g)
     lx = B2.split_ciphertext(params, *S2.encrypt(sk, g, x))
@@ -197,7 +191,9 @@ def test_scheme2_add_with_carry_on_card_equals_twin(k):
         after = tfused.blind_rotate_fused.launches, tfused.flatten_ntt_fwd.launches
         assert after == ((before[0] + 1, before[1]) if resident
                          else (before[0], before[1] + params.n))
-        want = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2, plain=True)
+        with monkeypatch.context() as mp:
+            mp.setattr(tbs, "_rotation_route", _twin_route)
+            want = B2._add_with_carry(params, ctx, bk, lx, ly, None, seed2)
         for w, gt in zip(want, got):
             assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
         assert torch.equal(B2.decrypt_lwe(sk, got[0]), z % 2**k)
@@ -205,7 +201,7 @@ def test_scheme2_add_with_carry_on_card_equals_twin(k):
 
 
 @pytest.mark.cuda
-def test_wideint_add_at_k4_on_card_equals_plain():
+def test_wideint_add_at_k4_on_card_equals_plain(monkeypatch):
     """Scheme 2 at k = 4 (L = 4, m = 4096 at the toy n = 64): one add_wide
     of W = 1 digit through the kernels equals the plain versions' output in
     deterministic and randomized mode and decrypts right."""
@@ -224,7 +220,9 @@ def test_wideint_add_at_k4_on_card_equals_plain():
         before = tfused.flatten_ntt_fwd.launches
         got = twi._add_wide(params, ctx, bk, xs, ys, seeds)
         assert tfused.flatten_ntt_fwd.launches == before + params.n
-        want = twi._add_wide(params, ctx, bk, xs, ys, seeds, plain=True)
+        with monkeypatch.context() as mp:
+            mp.setattr(tbs, "_rotation_route", _twin_route)
+            want = twi._add_wide(params, ctx, bk, xs, ys, seeds)
         for w, gt in zip(want, got):
             assert torch.equal(w.a, gt.a) and torch.equal(w.b, gt.b)
         np.testing.assert_array_equal(twi.decrypt_wide(sk, got), xv + yv)

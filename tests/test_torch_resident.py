@@ -164,7 +164,7 @@ def test_route_matches_resident_plan():
     sets = [T.Params.create(n) for n in (64, 128)] + [
         T.Scheme2.Params.create(k, 64) for k in (1, 2)]
     for params in sets:
-        resident = tbs._rotation_route(params, cuda, 0, False) == "resident"
+        resident = tbs._rotation_route(params, cuda) == "resident"
         assert resident == (tfused.fused_bkey_bytes(params) <= tbs._RESIDENT_KEY_BYTES)
         if resident:
             for prune in range(params.num_limbs):
@@ -209,7 +209,7 @@ def gates(ref):
         tiles.append(args[2].shape[0])
         return fused_plain(*args, **kwargs)
 
-    mp.setattr(tbs, "_rotation_route", lambda *args: "resident")
+    mp.setattr(tbs, "_rotation_route", lambda params, device: "resident")
     mp.setattr(tfused, "blind_rotate_fused_plain", counted)
     launches = tfused.blind_rotate_fused.launches
     try:

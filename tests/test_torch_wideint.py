@@ -101,11 +101,11 @@ def test_public_ops_split_one_pair_per_rotation(monkeypatch):
     are stubbed to record the words they are given."""
     seen = []
 
-    def fake_add(params, ctx, bkey, x, y, carry, seed2, prune=0, *, plain=False):
+    def fake_add(params, ctx, bkey, x, y, carry, seed2, prune=0):
         seen.append(seed2)
         return x, y
 
-    def fake_mul(params, ctx, bkey, x, y, seeds, prune=0, *, plain=False):
+    def fake_mul(params, ctx, bkey, x, y, seeds, prune=0):
         seen.extend(seeds)
         return x, y
 
