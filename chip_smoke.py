@@ -29,6 +29,11 @@ Phases, each printing its own lines; any failure raises and exits nonzero:
      each step-pair kernel, bit for bit against plain, exact and randomized, at
      every other batch a main path launches (mul's 1024, 512 and 256 lanes;
      the pack's 512 at Params(512)).
+  3s. the exact Q->r switch's kernel (csrc/rescale.cu) against its plain
+     version on the card, bit for bit, at a gate batch's a and b of
+     Params(512) (B = 256), Params(64) (B = 131072) and scheme 2 at k = 4
+     (512 lanes): ms a launch, the plain version's ms, the bound; its
+     registers and spills.
   4. main path at Params(64): keygen, encrypt, split, bootstrap_batch on
      4096 gates, decrypt_bit, AND/OR/XOR truth tables, in exact, randomized,
      prune 1 and prune 2 modes through rotate_resident (one launch a
@@ -220,6 +225,64 @@ def resident_cost(B, L, m, n, lk, randomized, carry):
         step -= 2 * B * L * m * lk * SHOUP_MULS
     entry = B * 2 * L * (m // 2) * logm * SHOUP_MULS if carry else 0
     return nbytes, n * step + entry
+
+
+def switch_rows(reps: int = 200) -> list:
+    """The exact Q->r switch's kernel (csrc/rescale.cu) at the main paths'
+    shapes, a (B, L, n) and b (B, L, 1) of a gate batch: == its plain
+    version on the card bit for bit; ms a launch by CUDA events (the
+    wrapper's host time where that is longer); the kernel's device ms in a
+    profiler trace; the plain version's ms (its eager launches, as the
+    main path ran them before the kernel); the bound (8 bytes a residue
+    read and a result written). One kernel-table row each."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    import sgfhe_tpu_torch as T
+    from sgfhe_tpu_torch.ops import rns
+
+    dev = torch.device("cuda")
+    p512, p64, p4 = T.Params.create(512), T.Params.create(64), T.Scheme2.Params.create(4)
+    shapes = [("n=512, B=256", p512, 256), ("n=64, B=131072", p64, 131072),
+              ("s2 k=4, 512 lanes", p4, 512)]
+    rows = []
+    gen = torch.Generator(device=dev).manual_seed(11)
+    for tag, params, B in shapes:
+        moduli, r = params.moduli, params.r
+        L = len(moduli)
+        ctx = rns.build_context(moduli).device_context(dev)
+        p = torch.tensor(moduli, dtype=torch.int64, device=dev).reshape(L, 1)
+        nl = rns.switch_consts(moduli, r, True).nl
+        for part, m in (("a", params.n), ("b", 1)):
+            x = torch.randint(0, 1 << 30, (B, L, m), generator=gen, device=dev) % p
+            got = rns.rescale_exact(ctx, x, r, moduli)
+            want = rns.rescale_exact_plain(ctx, x, r, moduli)
+            torch.cuda.synchronize()
+            err = int((got - want).abs().max())
+            if err:
+                fail(f"[3s] rescale_exact {part} ({tag}) vs plain max_abs_err {err}")
+            ms = cuda_ms(lambda i: rns.rescale_exact(ctx, x, r, moduli), reps)
+            pms = cuda_ms(lambda i: rns.rescale_exact_plain(ctx, x, r, moduli), 10)
+            with profile(activities=[ProfilerActivity.CUDA]) as prof:
+                for _ in range(20):
+                    rns.rescale_exact(ctx, x, r, moduli)
+                torch.cuda.synchronize()
+            dev_ms = [e.self_device_time_total / 1e3 / e.count for e in prof.key_averages()
+                      if "rescale_exact_kernel" in e.key]
+            coeffs = B * m
+            muls = coeffs * (L * (L - 1) // 2 * SHOUP_MULS + 2 * (L + 1) * nl)
+            bms, by = bound(8 * coeffs * (L + 1), muls)
+            name = f"rescale_exact {part} ({tag})"
+            rows.append(dict(
+                name=name, route="cuda", source="sgfhe_tpu_torch/csrc/rescale.cu",
+                replaces="none (the JAX package's rescale_exact is jnp)", launches=None,
+                calls=None, max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by,
+                library_ms=None, trace_ms=dev_ms[0] if dev_ms else None,
+            ))
+            print(f"[3s] {name}: {ms:.4f} ms/launch ({ms / bms:.1f}x bound), in the trace "
+                  f"{rows[-1]['trace_ms']} ms, plain {pms:.3f} ms, bound {bms:.4f} ms "
+                  f"({by}), max_abs_err {err}")
+    return rows
 
 
 def ptxas_entry(text: str, kernel: str) -> str:
@@ -636,6 +699,11 @@ def main() -> int:
     check_steps("3", "s2 k=1", s2p, ctx2, bk2, (1024, 512, 256))
     check_steps("3", "n=512", p512, ctx512, bk512, (512,))
     phase_done("3")
+
+    # ---- 3s. the exact Q->r switch's kernel at the main paths' shapes --------
+    print(f"[3s] rescale registers and spills: {ptxas_entry(ptxas_text, 'rescale_exact_kernel')}")
+    switch_table = switch_rows()
+    phase_done("3s")
 
     # ---- 4/5. the main path --------------------------------------------------
     def truth_tables(sk, out, y1, y2):
@@ -1485,7 +1553,7 @@ def main() -> int:
         row["calls"] = calls if main else 0
         row["trace_ms"] = tr[kname] if main else None
     print(f"[card] {smi()}")
-    print(json.dumps({"kernels": table}))
+    print(json.dumps({"kernels": table + switch_table}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

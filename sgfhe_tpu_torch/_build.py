@@ -3,8 +3,9 @@
 Each source under csrc/ is compiled by `nvcc` for sm_90a into a shared
 library with a plain C interface, at first use, into build/kernels/ at the
 root of the checkout (git-ignored), and loaded with ctypes: rotate.cu (the
-rotation's step pair) and rotate_resident.cu (the whole rotation in one
-launch), both on the helpers of rotate_common.cuh. The library's file name
+rotation's step pair), rotate_resident.cu (the whole rotation in one
+launch), both on the helpers of rotate_common.cuh, and rescale.cu (the
+exact Q->r switch, ops/rns.rescale_exact). The library's file name
 carries a hash of its source, the headers and the flags, so an edited
 source or header is rebuilt and a stale library is never loaded. Nothing
 here runs at import time: a host without nvcc imports the package and uses
@@ -23,7 +24,7 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parent.parent / "build" / "kernels"
-SOURCES = ("rotate.cu", "rotate_resident.cu")
+SOURCES = ("rotate.cu", "rotate_resident.cu", "rescale.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC",
@@ -97,7 +98,7 @@ def load(source: str = "rotate.cu") -> ctypes.CDLL:
     return lib
 
 
-_P, _I, _U = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32
+_P, _I, _U, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_uint32, ctypes.c_longlong
 _SIGNATURES = {
     "rotate.cu": {
         "sg_flatten_ntt_fwd": [_P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _U, _U, _U, _P, _P],
@@ -107,5 +108,8 @@ _SIGNATURES = {
     "rotate_resident.cu": {
         "sg_rotate_resident": [_P, _P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _I, _I, _U, _U,
                                _P, _P],
+    },
+    "rescale.cu": {
+        "sg_rescale_exact": [_P, _P, _P, _LL, _I, _I, _I, _LL, _LL, _LL, _P],
     },
 }

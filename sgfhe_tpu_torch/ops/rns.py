@@ -11,6 +11,7 @@ per-(digit, limb) tables (L, L, 1).
 from __future__ import annotations
 
 import dataclasses
+import functools
 
 import numpy as np
 import torch
@@ -291,6 +292,133 @@ def _mll_ge_const(a: list, t: int) -> torch.Tensor:
     return gt | eq
 
 
+#: The kernel's bounds (csrc/rescale.cu): limbs of D and steps of the ladder.
+SWITCH_NLMAX = 5
+SWITCH_KMAX = 4
+#: csrc/rescale.cu's SwitchConsts, field by field: (name, shape) in uint32
+#: words (f and f_b hold float32 bit patterns).
+SWITCH_FIELDS = (
+    ("p", (4,)), ("inv_pj", (4, 4)), ("inv_pj_s", (4, 4)), ("f", (4,)), ("f_b", ()),
+    ("aw", (4, SWITCH_NLMAX)), ("bkc", (SWITCH_NLMAX,)), ("ic", (2 * SWITCH_KMAX, SWITCH_NLMAX)),
+    ("k", ()), ("mask", ()),
+)
+
+
+@dataclasses.dataclass(frozen=True)
+class SwitchConsts:
+    """The exact switch's constants for one (moduli, new_max, round_result):
+    v = (A*x + B) / C (round: A = 2*new_max, B = Q, C = 2Q; floor: A =
+    new_max, B = 0, C = Q), the ladder's K, D's limb count nl, the float32
+    factors f32(A*w_i/C) and f32(B/C), and `words`, csrc/rescale.cu's
+    SwitchConsts (SWITCH_FIELDS) that the kernel takes by value."""
+
+    A: int
+    B: int
+    C: int
+    K: int
+    nl: int
+    weights: tuple
+    factors: tuple
+    f_b: float
+    words: np.ndarray
+
+
+def _words_of(fields: dict) -> np.ndarray:
+    out = []
+    for name, shape in SWITCH_FIELDS:
+        a = np.zeros(shape, dtype=np.uint32)
+        v = np.asarray(fields[name])
+        a[tuple(slice(0, n) for n in v.shape)] = v
+        out.append(a.reshape(-1))
+    return np.concatenate(out)
+
+
+def switch_fields(words: np.ndarray) -> dict:
+    """`SwitchConsts.words` cut back into SWITCH_FIELDS' named arrays."""
+    out, at = {}, 0
+    for name, shape in SWITCH_FIELDS:
+        size = int(np.prod(shape, dtype=np.int64))
+        out[name] = words[at:at + size].reshape(shape)
+        at += size
+    return out
+
+
+@functools.lru_cache(maxsize=None)
+def switch_consts(moduli: tuple[int, ...], new_max: int, round_result: bool) -> SwitchConsts:
+    """The switch's constants, from the Python-int moduli alone (no device
+    tensor is read), once per (moduli, new_max, round_result)."""
+    assert new_max & (new_max - 1) == 0, "new_max must be a power of two"
+    L = len(moduli)
+    Q = 1
+    weights = []
+    for p in moduli:
+        weights.append(Q)
+        Q *= p
+    if round_result:
+        A, B, C = 2 * new_max, Q, 2 * Q
+    else:
+        A, B, C = new_max, 0, Q
+    # float32 error budget: |est - v| < 3(L+2)*A*2^-23 (see the JAX version)
+    K = max(1, -(-(3 * (L + 2) * A) // (1 << 23)))
+    assert K <= SWITCH_KMAX, (
+        f"rescale_exact: new_max={new_max} exceeds the float32 estimate "
+        f"error budget for L={L} limbs (K={K} > {SWITCH_KMAX})"
+    )
+    nl = (A * (Q - 1) + B + (K + 1) * C).bit_length() // 32 + 1
+    factors = tuple(float(np.float32(A * w / C)) for w in weights)
+    f_b = float(np.float32(B / C)) if B else 0.0
+    words = None
+    if L <= 4 and nl <= SWITCH_NLMAX:  # the kernel's reach; beyond it, CPU only
+        inv = np.zeros((L, L), dtype=np.uint32)
+        inv_s = np.zeros((L, L), dtype=np.uint32)
+        for i in range(L):
+            for j in range(i):
+                inv[i, j] = pr.inv_mod(moduli[j], moduli[i])
+                inv_s[i, j] = mm.shoup_const(int(inv[i, j]), moduli[i])
+        words = _words_of(dict(
+            p=moduli, inv_pj=inv, inv_pj_s=inv_s,
+            f=np.array(factors, dtype=np.float32).view(np.uint32),
+            f_b=np.float32(f_b).view(np.uint32),
+            aw=[_limbs_of_int(A * w, nl) for w in weights],
+            bkc=_limbs_of_int(B + K * C, nl),
+            ic=[_limbs_of_int(i * C, nl) for i in range(1, 2 * K + 1)],
+            k=K, mask=new_max - 1,
+        ))
+        words.setflags(write=False)
+    return SwitchConsts(A, B, C, K, nl, tuple(weights), factors, f_b, words)
+
+
+def rescale_exact_plain(
+    ctx: RnsContext,
+    x: torch.Tensor,
+    new_max: int,
+    moduli: tuple[int, ...],
+    round_result: bool = True,
+) -> torch.Tensor:
+    """Plain version of the switch kernel (csrc/rescale.cu), on any device:
+    `rescale_exact` as eager int64 ops, about 315 launches on a card."""
+    sc = switch_consts(tuple(int(p) for p in moduli), int(new_max), bool(round_result))
+    digits = mixed_radix_digits(ctx, x)
+    est = None
+    for d, f in zip(digits, sc.factors):
+        term = d.to(torch.float32) * f
+        est = term if est is None else est + term
+    if sc.B:
+        est = est + sc.f_b
+    est = torch.clamp(est, min=0.0)
+    q_est = torch.floor(est).to(torch.int64)
+
+    nl, K, C = sc.nl, sc.K, sc.C
+    acc = [torch.full_like(q_est, v) for v in _limbs_of_int(sc.B + K * C, nl)]
+    for d, w in zip(digits, sc.weights):
+        acc = _mll_add(acc, _mll_mul_const(d, sc.A * w, nl))
+    acc = _mll_add(acc, _mll_neg(_mll_mul_const(q_est, C, nl)))
+    q = q_est - K
+    for i in range(1, 2 * K + 1):
+        q = q + _mll_ge_const(acc, i * C).to(torch.int64)
+    return q & (new_max - 1)
+
+
 def rescale_exact(
     ctx: RnsContext,
     x: torch.Tensor,
@@ -299,53 +427,51 @@ def rescale_exact(
     round_result: bool = True,
 ) -> torch.Tensor:
     """EXACT round/floor(x * new_max / Q) mod new_max for power-of-two
-    new_max (the Q->r modulus switch).
+    new_max (the Q->r modulus switch). x: (..., L, m) residues of values in
+    [0, Q); returns (..., m) int64.
 
     A float32 estimate of v = (A*x + B) / C (round: A=2*new_max, B=Q, C=2Q;
     floor: A=new_max, B=0, C=Q) is corrected by an exact multi-limb
     evaluation of D = A*x + B - (q_est - K)*C, which recovers the true
     quotient for any estimate within K of it. The float32 rounding may
     differ between devices; the ladder absorbs it, so the output does not.
-    K = 1 through n = 8192 and 2 at n = 16384."""
+    K = 1 through n = 8192 and 2 at n = 16384.
+
+    A CUDA tensor (int64, any strides) takes the kernel csrc/rescale.cu, one
+    launch counted in `rescale_exact.launches`, with no host sync and no
+    upload: its constants go by value. A CPU tensor takes
+    `rescale_exact_plain`; any other device raises."""
     with profiling.span("switch"):
-        assert new_max & (new_max - 1) == 0, "new_max must be a power of two"
-        moduli = tuple(int(p) for p in moduli)
-        Q = 1
-        weights = []
-        for p in moduli:
-            weights.append(Q)
-            Q *= p
-        if round_result:
-            A, B, C = 2 * new_max, Q, 2 * Q
-        else:
-            A, B, C = new_max, 0, Q
-        # float32 error budget: |est - v| < 3(L+2)*A*2^-23 (see the JAX version)
-        K = max(1, -(-(3 * (len(moduli) + 2) * A) // (1 << 23)))
-        assert K <= 4, (
-            f"rescale_exact: new_max={new_max} exceeds the float32 estimate "
-            f"error budget for L={len(moduli)} limbs (K={K} > 4)"
+        if x.device.type == "cpu":
+            return rescale_exact_plain(ctx, x, new_max, moduli, round_result)
+        if x.device.type != "cuda":
+            raise ValueError(f"rescale_exact takes CUDA tensors (CPU tensors take the "
+                             f"plain version), got {x.device}")
+        sc = switch_consts(tuple(int(p) for p in moduli), int(new_max), bool(round_result))
+        L, m = x.shape[-2], x.shape[-1]
+        if L != len(moduli) or x.dtype != torch.int64:
+            raise ValueError(f"rescale_exact: x must be int64 (..., {len(moduli)}, m), got "
+                             f"{x.dtype} {tuple(x.shape)}")
+        if sc.words is None:
+            raise ValueError(f"rescale_exact: L = {L} limbs of D = {sc.nl} are beyond the "
+                             f"kernel (L <= 4, at most {SWITCH_NLMAX} limbs)")
+        out = torch.empty(x.shape[:-2] + (m,), dtype=torch.int64, device=x.device)
+        if out.numel() == 0:
+            return out
+        x3 = x.reshape(-1, L, m)  # a view on the main path's layouts
+        from .. import _build
+
+        rc = _build.load("rescale.cu").sg_rescale_exact(
+            x3.data_ptr(), out.data_ptr(), sc.words.ctypes.data, x3.shape[0], L, m, sc.nl,
+            *x3.stride(), torch.cuda.current_stream().cuda_stream,
         )
-        nl = (A * (Q - 1) + B + (K + 1) * C).bit_length() // 32 + 1
+        if rc != 0:
+            raise RuntimeError(f"rescale_exact launch failed: cudaError {rc}")
+        rescale_exact.launches += 1
+        return out
 
-        digits = mixed_radix_digits(ctx, x)
-        est = None
-        for i, d in enumerate(digits):
-            f = float(np.float32(A * weights[i] / C))
-            term = d.to(torch.float32) * f
-            est = term if est is None else est + term
-        if B:
-            est = est + float(np.float32(B / C))
-        est = torch.clamp(est, min=0.0)
-        q_est = torch.floor(est).to(torch.int64)
 
-        acc = [torch.full_like(q_est, v) for v in _limbs_of_int(B + K * C, nl)]
-        for i, d in enumerate(digits):
-            acc = _mll_add(acc, _mll_mul_const(d, A * weights[i], nl))
-        acc = _mll_add(acc, _mll_neg(_mll_mul_const(q_est, C, nl)))
-        q = q_est - K
-        for i in range(1, 2 * K + 1):
-            q = q + _mll_ge_const(acc, i * C).to(torch.int64)
-        return q & (new_max - 1)
+rescale_exact.launches = 0
 
 
 def rescale_wide(new_max: int, x: torch.Tensor, old_max: int,

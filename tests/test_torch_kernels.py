@@ -22,6 +22,7 @@ import sgfhe_tpu_torch as T  # noqa: E402
 from sgfhe_tpu_torch.models import bootstrap as tbs  # noqa: E402
 from sgfhe_tpu_torch.ops import fused as tfused  # noqa: E402
 from sgfhe_tpu_torch.ops import modmath as mm  # noqa: E402
+from sgfhe_tpu_torch.ops import rns as trns  # noqa: E402
 from sgfhe_tpu_torch.utils import primes  # noqa: E402
 
 
@@ -110,9 +111,12 @@ def test_bootstrap_batch_on_card_truth_tables():
     bk = T.BootstrapKey.create(ctx, sk, g)
     msg = torch.randint(0, 2, (params.n,), generator=g)
     bits = T.split_ciphertext(T.encrypt(sk, g, msg)).lwe
+    before = trns.rescale_exact.launches
     out = T.bootstrap_batch(params, ctx, bk.hat, bk.hat_shoup,
                             T.LWE(bits.a[0::2], bits.b[0::2]),
                             T.LWE(bits.a[1::2], bits.b[1::2]))
+    # the switch: one kernel launch for a and one for b of each answer
+    assert trns.rescale_exact.launches == before + 6
     y1, y2 = msg[0::2].bool().to(dev), msg[1::2].bool().to(dev)
     for lwe, want in zip(out, (y1 & y2, y1 | y2, y1 ^ y2)):
         assert torch.equal(T.decrypt_bit(sk, T.EncryptedBit(lwe)), want)
